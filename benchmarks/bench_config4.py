@@ -1,25 +1,24 @@
-"""BASELINE config-4 step-time at kernel speed (round 4).
+"""BASELINE config-4 step time.
 
 Times the inverse-rendering optimizer step (render + pixel loss + backward
 + optax update) through the three estimators:
 
   * oracle    — jnp renderer AD (`pixel_loss`)
-  * fast      — fused trace + hand-written Pallas backward
+  * fast      — trace kernel + hand-written backward kernel
                 (`fast_pixel_loss`, draws + occluders hoisted)
-  * soft-fast — fused silhouette pair (`soft_pixel_loss(fast=True)`,
-                sphere-center recovery estimator, ops/pallas_soft.py)
+  * soft      — the edge-aware jnp renderer (`soft_pixel_loss`,
+                sphere-center recovery estimator, grad/diff_render.py)
 
 Workload: cornell_box_with_spheres at 256^2; path spp4/bounce2 for the
 interior estimators, direct spp4 for the silhouette estimator (its scope).
-Timing: one PERSISTENT jitted 500-step lax.scan per estimator, min over
-5 calls of the same executable. (Calling inverse_render per trial
-re-traces its closure each time, and the dev transport adds seconds of
-per-call variance — both would swamp a sub-ms step.)
+Timing: one persistent jitted 500-step lax.scan per estimator, min over
+5 calls of the same executable (calling inverse_render per trial would
+re-trace its closure each time).
 """
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, __file__.rsplit("/benchmarks/", 1)[0])
 
 import jax
 import jax.numpy as jnp
@@ -45,9 +44,8 @@ def main():
          dict(fast=True)),
         ("fast, no hoist", dict(integrator="path", spp=4, bounces=2),
          dict(fast=True, hoist=False)),
-        ("soft-fast(direct spp4)", dict(integrator="direct", spp=4,
-                                        bounces=1),
-         dict(soft=True, fast=True, kappa=0.1)),
+        ("soft(direct spp4)", dict(integrator="direct", spp=4, bounces=1),
+         dict(soft=True, kappa=0.1)),
     ]
     for name, cfg_kw, inv_kw in runs:
         cfg = RenderConfig(width=256, height=256, pixel_chunk=65536,
@@ -59,9 +57,8 @@ def main():
             light_emission=true_params.light_emission * 1.2)
 
         # One persistent jitted N-step loop per estimator (inverse_render
-        # re-traces per call, and the dev transport's seconds-scale
-        # per-call variance would swamp a ms-scale step time): build the
-        # same optax scan once, call it repeatedly, take the min.
+        # re-traces per call): build the same optax scan once, call it
+        # repeatedly, take the min.
         import optax
         from functools import partial as _partial
 
@@ -69,8 +66,7 @@ def main():
                                                    pixel_loss,
                                                    soft_pixel_loss)
         if inv_kw.get("soft"):
-            loss_fn = _partial(soft_pixel_loss, kappa=inv_kw["kappa"],
-                               fast=True)
+            loss_fn = _partial(soft_pixel_loss, kappa=inv_kw["kappa"])
         elif inv_kw.get("fast"):
             if inv_kw.get("hoist", True):
                 from gpuraytracer_tpu.intersect import potential_occluders

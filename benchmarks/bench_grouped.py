@@ -1,10 +1,8 @@
-"""High-triangle-count (grouped traversal) benchmark — VERDICT r3 #1.
+"""High-triangle-count (grouped traversal) benchmark.
 
 Measures the tessellated Cornell scene (~1k triangles, scene.py:
 cornell_box_tessellated) through the fused kernel pair at the flagship
-workload shape (512^2, 16 spp, 3 bounces), plus compile time. The static
--unroll kernels cannot compile this scene at all; the grouped kernels
-must deliver usable Mrays/s with compile < 2 min.
+workload shape (512^2, 16 spp, 3 bounces), plus compile time.
 
 Chained-scan timing methodology (see bench.py): min over trials of a
 data-dependent lax.scan chain, one device program.
@@ -12,20 +10,19 @@ data-dependent lax.scan chain, one device program.
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, __file__.rsplit("/benchmarks/", 1)[0])
 
 import jax
 import jax.numpy as jnp
 
 from gpuraytracer_tpu.intersect import potential_occluders
 from gpuraytracer_tpu.ops.pallas_path import (_render_pallas_impl,
-                                              pregen_draws_for)
+                                              pregen_draws)
 from gpuraytracer_tpu.ops.pallas_shade import render_path_decoupled_fused
 from gpuraytracer_tpu.scene import cornell_box_tessellated
 from gpuraytracer_tpu.types import RenderConfig
 from gpuraytracer_tpu.utils.cache import enable_compilation_cache
-from gpuraytracer_tpu.utils.metrics import (mrays_per_s, roofline_path_fwd,
-                                            roofline_pct)
+from gpuraytracer_tpu.utils.metrics import mrays_per_s
 
 ITERS = 8
 
@@ -152,7 +149,7 @@ def main():
     n_shadow = sum(occ)
     print(f"shadow tris after culling: {n_shadow}", flush=True)
     draws = jax.block_until_ready(
-        jax.jit(lambda: pregen_draws_for(scene, cfg))())
+        jax.jit(lambda: pregen_draws(cfg))())
 
     l0 = jnp.float32(0.0)
 
@@ -184,11 +181,6 @@ def main():
     dt_pair = min(ts) / ITERS
     print(f"fwd+bwd: compile {compile_pair:.1f}s, {dt_pair*1e3:.1f} ms = "
           f"{mrays_per_s(cfg, dt_pair):.0f} Mrays/s", flush=True)
-
-    model = roofline_path_fwd(cfg, num_tris=n_tris, num_spheres=0,
-                              in_kernel_rng=False, shadow_tris=n_shadow)
-    print(f"roofline fwd floor {model['t_floor_s']*1e3:.1f} ms -> achieved "
-          f"{roofline_pct(dt_fwd, model):.0f}%", flush=True)
 
 
 if __name__ == "__main__":

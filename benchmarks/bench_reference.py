@@ -1,5 +1,5 @@
 """Full reference-workload frame times — the reference's OWN headline
-settings (it publishes no numbers; these are ours on one TPU v5e):
+settings (it publishes no numbers; run this on the card for ours):
 
   variant B (RTrace/raytrace.metal:24-25):   800x600, 400 spp, 3 bounces
   variant A (shaders.metal:644-649):         800x600, 6 camera rays,

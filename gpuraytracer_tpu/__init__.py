@@ -1,7 +1,7 @@
-"""gpuraytracer_tpu — a TPU-native differentiable path tracer.
+"""gpuraytracer_tpu — a differentiable path tracer in JAX.
 
-A from-scratch JAX/Pallas/pjit framework with the capabilities of
-Nishad-Sharma/gpuRaytracer (Swift + Metal), re-designed TPU-first:
+A from-scratch JAX/Pallas framework with the capabilities of
+Nishad-Sharma/gpuRaytracer (Swift + Metal), running on NVIDIA GPUs:
 
   * ``types``     SoA pytree scene (the ABI-struct layer, shaderTypes.h)
   * ``scene``     Cornell-box constructors (scene.swift)
@@ -9,7 +9,7 @@ Nishad-Sharma/gpuRaytracer (Swift + Metal), re-designed TPU-first:
   * ``intersect`` brute-force vectorized ray-scene queries (the BVH analog)
   * ``brdf``      metallic-roughness microfacet BRDF
   * ``render``    pure-jnp reference integrators (path / mis / direct)
-  * ``ops``       Pallas TPU kernels for the hot path
+  * ``ops``       Pallas kernels (Triton route) for the hot path
   * ``grad``      differentiable + inverse rendering
   * ``parallel``  mesh sharding, multi-host, collectives
   * ``image``     tonemap + PNG I/O

@@ -15,7 +15,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="gpuraytracer-tpu",
-        description="TPU-native differentiable path tracer",
+        description="Differentiable path tracer",
     )
     p.add_argument("output", nargs="?", default="output.png",
                    help="output PNG filename (positional, like the reference)")
@@ -39,8 +39,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write row-averaged HDR stats (debugOutput.txt analog)")
     p.add_argument("--kernel", choices=["jnp", "pallas", "decoupled"],
                    default="jnp",
-                   help="reference jnp path, the Pallas TPU kernel, or the "
-                        "differentiable decoupled trace+replay path")
+                   help="reference jnp path, the Pallas trace kernel, or "
+                        "the differentiable kernel pair (trace + backward)")
     p.add_argument("--debug-nans", action="store_true",
                    help="abort with a traceback on the first NaN-producing "
                         "op (utils.debug; forces sync execution — slow)")
@@ -94,7 +94,7 @@ def main(argv=None) -> int:
 
     start = time.perf_counter()
     if args.devices > 1:
-        # Multi-chip: pixels sharded over a 1-D ``rays`` mesh, scene
+        # Several devices: pixels sharded over a 1-D ``rays`` mesh, scene
         # replicated, fused trace kernel per shard (parallel/fast.py). The
         # sharded image is bit-identical per pixel to the single-device one
         # (RNG is a pure function of the global pixel id).
@@ -131,8 +131,8 @@ def main(argv=None) -> int:
         from .intersect import potential_occluders
         occ = potential_occluders(scene, config)
         if args.integrator == "mis":
-            # Fused MIS: trace-kernel forward + record-replay Pallas
-            # backward (the repo's fastest differentiable variant-A path).
+            # Fused MIS: trace-kernel forward + record-replay backward
+            # kernel (the repo's fastest differentiable variant-A path).
             from .ops.pallas_mis_bwd import render_mis_decoupled
             acc = jax.block_until_ready(
                 render_mis_decoupled(scene, config, occluders=occ))

@@ -71,8 +71,7 @@ def fast_pixel_loss(params: SceneParams, scene: Scene, config: RenderConfig,
                     occluders=None) -> jnp.ndarray:
     """``pixel_loss`` through the fused kernel pair (Pallas trace forward +
     hand-written Pallas backward, ops/pallas_shade.py — sphere scenes take
-    the analytic-sphere branch): ~100x the oracle's fwd+bwd throughput on
-    TPU with identical (interior) gradients. Records are re-traced every
+    the analytic-sphere branch), with identical (interior) gradients. Records are re-traced every
     step at the current parameters, so the piecewise-constant visibility is
     always evaluated at the live scene — the same estimator as
     ``pixel_loss``. This is BASELINE config 4's optax loop at kernel
@@ -81,10 +80,8 @@ def fast_pixel_loss(params: SceneParams, scene: Scene, config: RenderConfig,
     ``draws``/``occluders``: step-invariant amortizations, computed ONCE by
     the caller OUTSIDE the training scan (``inverse_render`` does this) —
     the draws are a pure function of config, and the occluder mask is built
-    with enough ``sphere_slack`` to stay sound while centers move. XLA
-    SINKS (not hoists) the pregen kernel when it is left inside a scan
-    body, so omitting these re-pays ~14 radical-inverse tiles per sample
-    per step."""
+    with enough ``sphere_slack`` to stay sound while centers move. Left
+    inside a scan body, the draws may be recomputed every step."""
     from ..ops import render_path_decoupled
     img = render_path_decoupled(apply_params(scene, params), config,
                                 draws=draws, occluders=occluders)
@@ -92,22 +89,12 @@ def fast_pixel_loss(params: SceneParams, scene: Scene, config: RenderConfig,
 
 
 def soft_pixel_loss(params: SceneParams, scene: Scene, config: RenderConfig,
-                    target: jnp.ndarray, kappa: float = 0.05,
-                    fast: bool = False, occluders=None) -> jnp.ndarray:
-    """Pixel loss through the edge-aware renderer: same forward value as
-    the hard render, plus sphere-silhouette gradient terms — required for
-    geometry (sphere-center) recovery. ``fast=True`` routes through the
-    fused silhouette kernel pair (ops/pallas_soft.py — trace + silhouette
-    records + in-kernel-vjp backward) at kernel speed with the SAME
-    estimator; ``fast=False`` is the jnp oracle (diff_render.py)."""
-    s = apply_params(scene, params)
-    if fast:
-        from ..ops.pallas_soft import render_direct_soft_fused
-        img = render_direct_soft_fused(s, config, kappa,
-                                       occluders=occluders)
-    else:
-        from .diff_render import render_direct_soft
-        img = render_direct_soft(s, config, kappa)
+                    target: jnp.ndarray, kappa: float = 0.05) -> jnp.ndarray:
+    """Pixel loss through the edge-aware renderer (diff_render.py): same
+    forward value as the hard render, plus sphere-silhouette gradient
+    terms — required for geometry (sphere-center) recovery."""
+    from .diff_render import render_direct_soft
+    img = render_direct_soft(apply_params(scene, params), config, kappa)
     return jnp.mean((img - target) ** 2)
 
 
@@ -137,13 +124,16 @@ def inverse_render(
     """Gradient-descent recovery of scene parameters from a target image.
 
     ``soft=True`` switches to the edge-aware loss (needed when sphere
-    geometry is among the unknowns); with it, plain SGD + momentum tracks the
-    tiny silhouette gradients more reliably than adam (whose per-parameter
-    normalization amplifies plateau noise), so that's the soft-mode default.
-    The whole loop runs as one jitted lax.scan so multi-step optimization is
-    a single device program.
+    geometry is among the unknowns; it runs on the jnp renderer
+    diff_render.render_direct_soft, which has no kernel, so passing
+    ``fast=True`` with it raises ValueError);
+    with it, plain SGD + momentum tracks the tiny silhouette gradients more
+    reliably than adam (whose per-parameter normalization amplifies plateau
+    noise), so that's the soft-mode default. The whole loop runs as one
+    jitted lax.scan so multi-step optimization is a single device program.
 
-    ``fast=True`` additionally hoists the two step-invariant amortizations
+    ``fast=True`` renders through the kernel pair (trace kernel +
+    hand-written backward) and hoists the two step-invariant amortizations
     out of the scan: the pregenerated Halton draw planes
     (``pallas_path.pregen_draws`` — pure function of config) and the static
     occluder mask (``intersect.potential_occluders`` built with
@@ -154,6 +144,9 @@ def inverse_render(
     pregen into the scan body costs; see benchmarks/bench_config4.py)."""
     import optax
 
+    if soft and fast:
+        raise ValueError("soft=True runs the jnp soft renderer, which has no "
+                         "kernel: drop fast=True")
     if optimizer is not None:
         opt = optimizer
     elif soft:
@@ -161,21 +154,16 @@ def inverse_render(
     else:
         opt = optax.adam(learning_rate)
     if soft:
-        # No occluder mask here even when fast: geometry-recovery
-        # trajectories can transiently overshoot any fixed sphere_slack
-        # (momentum + plateau noise), and a stale mask then corrupts the
-        # silhouette gradients permanently. Sphere scenes have ~12
-        # triangles — the uncd shadow loop costs almost nothing.
-        loss_fn = partial(soft_pixel_loss, kappa=kappa, fast=fast)
+        loss_fn = partial(soft_pixel_loss, kappa=kappa)
     elif fast:
         if hoist:
             from ..intersect import potential_occluders
-            from ..ops.pallas_path import pregen_draws_for
+            from ..ops.pallas_path import pregen_draws
             from ..ops.pallas_shade import _auto_records_only
             occluders = potential_occluders(scene, config,
                                             sphere_slack=sphere_slack)
             draws = (None if _auto_records_only(config)
-                     else pregen_draws_for(scene, config))
+                     else pregen_draws(config))
         else:
             draws = occluders = None
         loss_fn = partial(fast_pixel_loss, draws=draws, occluders=occluders)

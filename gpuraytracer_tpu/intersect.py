@@ -1,12 +1,12 @@
-"""Batched ray-scene intersection — the TPU-native acceleration structure.
+"""Batched ray-scene intersection — the jnp oracle's acceleration structure.
 
 Replaces the reference's driver-built BVH + hardware ``intersector``
 (setupAccelerationStructures, RTrace/computeShader.swift:45-97; traversal at
-RTrace/raytrace.metal:48-49,83-85 and shaders.metal:459-509). TPUs have no RT
-cores and the reference scene is 34 triangles, so the right design is a
-brute-force *vectorized* test of every ray against every triangle: rays tile
-the sublane axis, triangles (padded to the 128-lane width) tile the lane axis,
-and closest-hit is an argmin over lanes. ``compile_scene`` is the analog of the
+RTrace/raytrace.metal:48-49,83-85 and shaders.metal:459-509). JAX cannot
+reach ray-tracing hardware and the reference scene is 34 triangles, so the
+oracle is a brute-force *vectorized* test of every ray against every
+triangle ([rays, triangles] arrays, triangles padded to ``lane_pad``), and
+closest-hit is an argmin over triangles. ``compile_scene`` is the analog of the
 accel-structure build step: it precomputes per-triangle constants so one
 ray-triangle test is 6 broadcasted dot products plus elementwise math.
 
@@ -51,8 +51,7 @@ def _pad_to(x: jnp.ndarray, p: int, value=0.0) -> jnp.ndarray:
 
 def compile_scene(tri: TriangleScene, lane_pad: int = 128) -> CompiledScene:
     """Precompute intersection constants; pad the triangle axis to a multiple
-    of ``lane_pad`` (the TPU lane width) so [rays, T] tiles map cleanly onto
-    the VPU. Padding triangles are flagged invalid and use a far-away plane so
+    of ``lane_pad`` so [rays, T] arrays have a regular shape. Padding triangles are flagged invalid and use a far-away plane so
     they can never win the argmin."""
     v0 = tri.verts[:, 0, :]
     e1 = tri.verts[:, 1, :] - v0
@@ -117,7 +116,7 @@ def _triangle_candidates(
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """All-pairs ray/triangle test. origin/direction are [..., 3]; returns
     (t_vals[..., P], valid[..., P]). Written as broadcasted multiply-adds
-    (full-f32 VPU work; avoids TPU matmul precision issues for K=3 dots).
+    (full-f32 elementwise work; no reduced-precision matmul for K=3 dots).
     t_min/t_max may be scalars or per-ray arrays [...]."""
     t_min, t_max = _broadcast_limits(t_min, t_max)
     o = origin[..., None, :]   # [..., 1, 3]

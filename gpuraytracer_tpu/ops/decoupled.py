@@ -4,7 +4,7 @@ The monolithic megakernel (pallas_path.py) is the fastest *forward*, but
 Pallas kernels are not differentiable by jax AD. Instead of hand-deriving a
 backward kernel, the renderer is split at the discrete/continuous boundary:
 
-  1. **Trace (Pallas, non-differentiable by construction):** the kernel
+  1. **Trace (Pallas kernel, non-differentiable by construction):** the kernel
      replays the full path trace and emits, per (sample, bounce, pixel), one
      int32 *visibility record* (winning primitive id + shadow-occlusion bit)
      plus the raw random draws (NEE / cosine / jitter uv). The records are
@@ -20,23 +20,10 @@ backward kernel, the renderer is split at the discrete/continuous boundary:
      same math as the jnp oracle minus all [rays, triangles] intersection
      work and all RNG.
 
-Layout rules that set the replay's speed (v5e, 512^2 16 spp 3 bounce):
-
-  * **Planar scalars.** All shading math runs on [chunk, N] f32 planes —
-    never [..., 3] vectors and never a packed [..., attrs] row. TPU tiles
-    the two minor dims as (8, 128); a minor dim of 3 or 16 pads to 128
-    lanes, turning every elementwise op and every layout copy into 8-43x
-    wasted HBM traffic (measured: the packed-row version spent 5 ms/step in
-    pure layout copies of f32[16,262144,16] between {1,2,0} and {1,0,2}).
-  * **One-hot matmul with the primitive axis MAJOR** for the attribute
-    fetch: attrs[A, rays] = table[A, P] @ onehot[P, rays]. The one-hot and
-    the result keep the huge ray axis minor-most (clean (8,128) tiles); the
-    backward is the transpose matmul (a dense MXU scatter-add into the
-    table). The two tempting alternatives both lose badly in situ on v5e:
-    the packed-row one-hot (onehot[rays, P] @ table[P, 16]) pays the
-    lane-padding tax above, and per-attribute ``jnp.take`` from [P] columns
-    lowers to serialized SparseCore gathers at ~33 ms per plane (measured) —
-    3 orders of magnitude slower than the MXU route for a 36-entry table.
+Layout: all shading math runs on [chunk, N] f32 planes (never [..., 3]
+vectors or packed [..., attrs] rows), and per-primitive attributes are
+fetched by a one-hot contraction attrs[A, rays] = table[A, P] @
+onehot[P, rays] whose transpose is the table's cotangent scatter-add.
 
 Gradients from AD over the shade pass are IDENTICAL to jax.grad of the jnp
 reference renderer (asserted in tests), because the reference's gradient also
@@ -312,9 +299,8 @@ def shade_replay(scene: Scene, aux: TraceAux,
     xs = (rs(aux.records), rs(aux.nee_u0), rs(aux.nee_u1),
           rs(aux.cos_u0), rs(aux.cos_u1), rs(aux.jitter_x), rs(aux.jitter_y))
     zero = jnp.zeros(px.shape, _F32)
-    # Rematerialization wins even for a single chunk: storing residuals was
-    # measured 26% slower than the recompute on v5e (54.3 vs 43.1 ms
-    # fwd+bwd at 512^2/16spp) — the residual traffic exceeds the recompute.
+    # Rematerialized per chunk: the backward recomputes each chunk's
+    # forward instead of storing its residuals, bounding live memory.
     (lum_r, lum_g, lum_b), _ = jax.lax.scan(
         jax.checkpoint(one_chunk), (zero, zero, zero), xs)
     inv_spp = _F32(1.0 / config.spp)
@@ -329,7 +315,7 @@ def render_path_decoupled(scene: Scene, config: RenderConfig,
     megakernel/oracle; gradients match jax.grad of the oracle.
 
     Both triangle and sphere scenes take the fused path (trace kernel
-    forward + the hand-written Pallas backward, ops/pallas_shade.py — the
+    forward + the hand-written backward kernel, ops/pallas_shade.py — the
     backward replays the analytic sphere quadratic in-kernel). The jnp
     ``shade_replay`` remains as the slow parity oracle for the record
     format (tests/test_decoupled.py). ``draws``: optional step-invariant

@@ -1,4 +1,4 @@
-"""Pallas TPU megakernel for the variant-A 3-strategy MIS integrator.
+"""Variant-A 3-strategy MIS megakernel (Pallas, Triton route).
 
 The reference's heaviest workload: ``drawTriangle`` +
 ``recursiveMultiImportanceSampling`` (Sources/gpuRaytracer/shaders.metal:543-707)
@@ -9,20 +9,20 @@ the two BSDF strategies. Per sample that is 5 ray-scene traversals (1 light
 probe + 2 BSDF closest-hits + 2 secondary light probes) ≈ 3,000
 traversals/pixel at reference settings (SURVEY.md §3.2).
 
-TPU design (same layout as pallas_path.py): rays dense on [RAY_SUB, 128]
-tiles in VMEM for the whole camera-ray × sample loop; triangles a static
-unrolled loop over the real primitives with SMEM-scalar constants. The
+One program holds TILE pixels for the whole camera-ray x sample loop, with
+the triangle loops of pallas_path (group-AABB-skipped rolled loops). The
 reference's per-sample randoms are *pixel-independent* Halton points
-(haltonRandom(i, d), shaders.metal:557,564,584,595,617), so they live in an
-SMEM table read as loop scalars — zero vector work for sample generation, and
-the light-strategy sample position is a plain scalar broadcast.
+(haltonRandom(i, d), shaders.metal:557,564,584,595,617), so they live in a
+small table read as scalars: the light-strategy sample position is a plain
+scalar broadcast.
 
 All math mirrors render._mis_chunk / sampling.py exactly (same quirks:
 D_GGX takes roughness not roughness², light pdf to the light *center*,
 β=1 power heuristic); parity vs the jnp oracle is asserted in tests.
 
 Gradients: like ``render_path_pallas``, a custom VJP whose backward is the
-VJP of the jnp reference (recompute-based).
+VJP of the jnp reference (recompute-based); ``render_mis_fused``
+(ops/pallas_mis_bwd.py) is the kernel-speed differentiable path.
 """
 from __future__ import annotations
 
@@ -32,30 +32,28 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from .. import sampling as smp
 from ..intersect import compile_scene
 from ..render import render_mis
 from ..types import RenderConfig, Scene
-from .pallas_path import (GROUP, PBLK, STATIC_UNROLL_MAX, SUPER,
-                          T_FAR_SLACK, _safe_inv, _slab_interval,
-                          group_aabbs, pack_shadow_tables, pad_geo)
+from . import route
+from .pallas_path import (camera_vec, closest_tris, group_aabbs,
+                          occluded_tris, pack_shadow_tables, pad_geo,
+                          spheres_closest, spheres_occluded)
 
 _F32 = jnp.float32
 _U32 = jnp.uint32
 _I32 = jnp.int32
 
-RAY_SUB = 32
-LANES = 128
-TILE = RAY_SUB * LANES
+TILE = 128                   # pixels per program (power of two)
 BIG = 1e30
 RAY_TMIN = 1e-3
 RAY_TMAX = 1e3
 INV_2_32 = float(1.0 / 4294967296.0)
 PI = math.pi
 
-# Triangle-constant rows ([NROWS, T] SMEM table) — pallas_path's 19 rows plus
+# Triangle-constant rows ([NROWS, T] table) — pallas_path's 19 rows plus
 # metallic/roughness (the MIS BRDF needs them).
 NROWS = 21
 (ROW_NX, ROW_NY, ROW_NZ, ROW_C0,
@@ -67,27 +65,24 @@ NROWS = 21
 # Debug bisection knob: include (light, cosine, vndf) strategy contributions.
 DEBUG_STRATEGY_MASK = (True, True, True)
 
-# Per-sample random table rows ([NTAB, S] SMEM): 5 (u1, u2) pairs.
+# Per-sample random table rows ([NTAB, S]): 5 (u1, u2) pairs.
 NTAB = 10
 (TAB_LU0, TAB_LU1, TAB_CU0, TAB_CU1, TAB_CSU0, TAB_CSU1,
  TAB_VU0, TAB_VU1, TAB_VSU0, TAB_VSU1) = range(NTAB)
 
-# Attribute-table rows ([NATTR, T + S] VMEM): shading attributes fetched per
-# closest-hit by a one-hot MXU matmul over the winning primitive index
-# instead of 9 carried where-select planes per primitive (same trick as
-# pallas_path.closest): normal xyz (zeros for spheres), diffuse rgb,
-# metallic, roughness, is_emissive, sphere-center xyz (zeros for triangles).
+# Attribute-table rows ([NATTR, T + S]): shading attributes gathered per
+# closest hit for the winning primitive (as in pallas_path.closest): normal
+# xyz (zeros for spheres), diffuse rgb, metallic, roughness, is_emissive,
+# sphere-center xyz (zeros for triangles).
 NATTR = 12
 
-# Sphere-constant rows ([SROWS, S] SMEM): center xyz, radius (geometry only;
-# shading attrs ride the one-hot table).
+# Sphere-constant rows ([SROWS, S]): center xyz, radius (geometry only;
+# shading attributes come from the attribute table).
 SROWS = 4
 
 # Per-sample record bit layout (int32, built with exact integer ops):
 # reach1 | reach2<<1 | reach3<<2 | (cos_prim+1)<<REC_SHIFT_C
-# | (vndf_prim+1)<<REC_SHIFT_V. 14-bit codes — up to 16382 primitives
-# (round 5 widened this from 10 bits for the grouped-traversal tier; the
-# float-arithmetic pack it replaced was exact only below 2^24).
+# | (vndf_prim+1)<<REC_SHIFT_V. 14-bit codes — up to 16382 primitives.
 REC_SHIFT_C = 3
 REC_SHIFT_V = 17
 REC_CODE_MASK = (1 << 14) - 1
@@ -97,8 +92,8 @@ REC_MAX_PRIMS = REC_CODE_MASK - 1
 def _normalize3(x, y, z):
     # 1e-12 floor (matches sampling.normalize): rsqrt's VJP overflows f32
     # below ~1e-24 — the in-kernel jax.vjp of the half-vector
-    # normalize3(v + l) hit it on real TPUs when v ~ -l on masked lanes
-    # (inf, then 0 * inf = NaN through the reverse sweep).
+    # normalize3(v + l) hits it when v ~ -l on masked lanes (inf, then
+    # 0 * inf = NaN through the reverse sweep).
     inv = jax.lax.rsqrt(jnp.maximum(x * x + y * y + z * z, 1e-12))
     return x * inv, y * inv, z * inv
 
@@ -122,8 +117,8 @@ def _hash_u32(x):
 
 
 def _u32_to_f32(x):
-    """u32 -> f32 in [0, 1). Mosaic lacks a uint32->f32 convert; split into
-    two int32-safe halves."""
+    """u32 -> f32 in [0, 1), from two int32-safe halves (exactly the
+    oracle's value)."""
     hi = (x >> 16).astype(_I32).astype(_F32)
     lo = (x & _U32(0xFFFF)).astype(_I32).astype(_F32)
     return (hi * 65536.0 + lo) * _F32(INV_2_32)
@@ -215,55 +210,39 @@ def _power_heuristic_3(p1, p2, p3, n):
 
 
 def _mis_kernel(config: RenderConfig, n_pixels: int, num_tris: int,
-                num_spheres: int, emit_records: bool, occluders,
-                grouped: bool, share_shadow: bool,
-                offsets_unused, rid_base_ref, cam_ref, light_ref, tri_ref,
-                sph_ref, tab_ref, atab_ref, *rest):
-    """One [RAY_SUB, 128] tile of pixels through the full variant-A pipeline.
+                num_spheres: int, emit_records: bool, n_groups: int,
+                n_groups_sh: int,
+                rid_base_ref, cam_ref, light_ref, tri_ref, sph_ref, tab_ref,
+                atab_ref, aabb_ref, shadow_ref, sh_aabb_ref, *rest):
+    """One program: TILE pixels through the full variant-A pipeline.
     Outputs raw accumulated color (pre exposure/tonemap), like the oracle.
 
     With ``emit_records`` (the differentiable fused path,
     ops/pallas_mis_bwd.py), also writes the integrator's discrete decisions:
       rec_refs[0]  per (camera ray, pixel):  int32 camera closest-hit code
-                   = prim + 1 (0 = miss)
+                   = prim + 1 (0 = miss); rows [camera ray, TILE]
       rec_refs[1]  per (camera ray, sample, pixel): packed int32
-                   (see REC_SHIFT_C/REC_SHIFT_V — 14-bit prim codes)
+                   (see REC_SHIFT_C/REC_SHIFT_V — 14-bit prim codes);
+                   rows [camera ray, sample, TILE]
     These replay the kernel's visibility/argmin decisions in the backward
     kernel, which treats them (correctly) as piecewise constant.
 
-    ``grouped`` (num_tris > pallas_path.STATIC_UNROLL_MAX) switches the
-    triangle loops to the path kernels' GROUPED dynamic traversal:
-    tri_ref becomes a zero-padded [12, P_gpad] SMEM geometry table read
-    with dynamic scalar indices under a two-level AABB cull
-    (16-tri groups / 128-tri supers, pallas_path.group_aabbs), atab_ref a
-    TRANSPOSED [P_pad128, NATTR] VMEM fetch table contracted per
-    128-primitive block, and five extra refs precede the outputs: dense
-    occluder-culled shadow geometry + the two AABB table pairs. The cull
-    is conservative (padded boxes), so decisions are bit-identical to the
-    brute loop; the per-sample origin-dot hoist is static-mode-only."""
-    if grouped:
-        if share_shadow:
-            # One geometry/AABB table set for both loops (SMEM budget —
-            # see pallas_path._render_pallas_impl's share_shadow note).
-            aabb_ref, sup_ref = rest[:2]
-            rest = rest[2:]
-            shadow_ref, sh_aabb_ref, sh_sup_ref = tri_ref, aabb_ref, sup_ref
-        else:
-            (shadow_ref, aabb_ref, sup_ref,
-             sh_aabb_ref, sh_sup_ref) = rest[:5]
-            rest = rest[5:]
+    The triangle loops are pallas_path's (``closest_tris`` /
+    ``occluded_tris``) over the zero-padded geometry table ``tri_ref`` and
+    the dense occluder-culled shadow table ``shadow_ref``, each with its
+    group AABBs. The skip is conservative, so decisions equal the brute
+    loop's."""
     out_r_ref, out_g_ref, out_b_ref = rest[:3]
     rec_refs = rest[3:]
     W = config.width
     s_per = config.mis_samples // 3
 
     pid = pl.program_id(0)
-    sub = jax.lax.broadcasted_iota(_I32, (RAY_SUB, LANES), 0)
-    lanei = jax.lax.broadcasted_iota(_I32, (RAY_SUB, LANES), 1)
+    lane = jax.lax.broadcasted_iota(_I32, (TILE,), 0)
     # Global pixel id (rid_base = the shard's first pixel under shard_map;
-    # 0 single-chip) — jitter/camera stay pure functions of the global
+    # 0 single-device) — jitter/camera stay pure functions of the global
     # pixel, so sharded rendering is bit-identical per pixel.
-    rid = rid_base_ref[0, 0] + pid * TILE + sub * LANES + lanei
+    rid = rid_base_ref[0, 0] + pid * TILE + lane
     pxi = rid % W
     pyi = rid // W
     px = pxi.astype(_F32)
@@ -283,304 +262,33 @@ def _mis_kernel(config: RenderConfig, n_pixels: int, num_tris: int,
     ltx, lty, ltz = lt[11:14]
     lbx, lby, lbz = lt[14:17]
 
-    tris = []
-    if not grouped:
-        for t in range(num_tris):
-            tris.append(tuple(tri_ref[r, t] for r in range(12)))
-    sphs = []
-    for s_i in range(num_spheres):
-        sphs.append(tuple(sph_ref[r, s_i] for r in range(SROWS)))
-
     n_prims = num_tris + num_spheres
-    if not grouped:
-        p_iota = jax.lax.broadcasted_iota(_I32, (n_prims, TILE), 0)
-        # Exact one-pass attribute fetch via the bf16 chunk-split (see
-        # pallas_path/pallas_shade) — 1/6 the passes of the HIGHEST fetch.
-        atabv = atab_ref[...]
-        a0 = atabv.astype(jnp.bfloat16).astype(_F32)
-        ar = atabv - a0
-        a1 = ar.astype(jnp.bfloat16).astype(_F32)
-        atab9 = jnp.concatenate([a0, a1, ar - a1], axis=0)  # [3*NATTR, P]
-    else:
-        pb_iota = jax.lax.broadcasted_iota(_I32, (PBLK, TILE), 0)
 
-    def _tri_closest_step(row, prim_idx_f, ox, oy, oz, dx, dy, dz,
-                          t_best, prim_f):
-        """One triangle's closest-hit test (grouped mode — the static
-        unroll keeps its origin-dot-hoisted form below). Identical accept
-        logic to the static loop."""
-        (nx, ny, nz, c0, s1x, s1y, s1z, c1, s2x, s2y, s2z, c2) = row
-        den = dx * nx + dy * ny + dz * nz
-        num = c0 - (ox * nx + oy * ny + oz * nz)
-        ok = jnp.abs(den) >= 1e-12
-        tt = num / den
-        u = (ox * s1x + oy * s1y + oz * s1z) \
-            + tt * (dx * s1x + dy * s1y + dz * s1z) - c1
-        v = (ox * s2x + oy * s2y + oz * s2z) \
-            + tt * (dx * s2x + dy * s2y + dz * s2z) - c2
-        closer = (ok & (tt > RAY_TMIN) & (tt < RAY_TMAX)
-                  & (jnp.minimum(u, v) >= 0.0) & (u + v <= 1.0)
-                  & (tt < t_best))
-        t_best = jnp.where(closer, tt, t_best)
-        prim_f = jnp.where(closer, prim_idx_f, prim_f)
-        return t_best, prim_f
-
-    def closest_tris_grouped(ox, oy, oz, dx, dy, dz, t_best, prim_f):
-        """Two-level AABB-culled closest-hit sweep over the grouped
-        triangle tables (pallas_path._path_kernel.closest mirror)."""
-        ivx, ivy, ivz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
-        n_super = sup_ref.shape[1]
-
-        def tri_group(g, carry):
-            t_b, p_f = carry
-            aabb6 = [aabb_ref[r, g] for r in range(6)]
-            tmin, tmax = _slab_interval(aabb6, ox, oy, oz, ivx, ivy, ivz)
-            t_far = jnp.minimum(t_b * (1.0 + T_FAR_SLACK) + T_FAR_SLACK,
-                                RAY_TMAX)
-            reach = tmin <= jnp.minimum(tmax, t_far)
-            any_hit = jnp.max(jnp.where(reach, 1.0, 0.0)) > 0.5
-
-            def run(carry):
-                t_b, p_f = carry
-                base = g * GROUP
-                for k in range(GROUP):
-                    idx = base + k
-                    row = tuple(tri_ref[r, idx] for r in range(12))
-                    t_b, p_f = _tri_closest_step(
-                        row, idx.astype(_F32), ox, oy, oz, dx, dy, dz,
-                        t_b, p_f)
-                return t_b, p_f
-
-            return jax.lax.cond(any_hit, run, lambda c: c, (t_b, p_f))
-
-        def super_body(sg, carry):
-            t_b, p_f = carry
-            s6 = [sup_ref[r, sg] for r in range(6)]
-            tmin, tmax = _slab_interval(s6, ox, oy, oz, ivx, ivy, ivz)
-            t_far = jnp.minimum(t_b * (1.0 + T_FAR_SLACK) + T_FAR_SLACK,
-                                RAY_TMAX)
-            reach = tmin <= jnp.minimum(tmax, t_far)
-            any_hit = jnp.max(jnp.where(reach, 1.0, 0.0)) > 0.5
-
-            def run(carry):
-                for k in range(SUPER):
-                    carry = tri_group(sg * SUPER + k, carry)
-                return carry
-
-            return jax.lax.cond(any_hit, run, lambda c: c, (t_b, p_f))
-
-        return jax.lax.fori_loop(0, n_super, super_body, (t_best, prim_f))
-
-    def fetch_grouped(pc, hit):
-        """BLOCK-RANGE one-hot fetch against the transposed atab
-        (pallas_path.fetch_attrs grouped-branch mirror): only the
-        128-primitive blocks spanned by the tile's winning indices are
-        contracted; miss lanes fetch zeros (every consumer gates by
-        ``hit``-derived masks)."""
-        pcf = pc.reshape(1, TILE)
-        pmin = jnp.min(jnp.where(hit, pc, n_prims - 1))
-        pmax = jnp.max(jnp.where(hit, pc, 0))
-
-        def blk_body(bk, at_acc):
-            off = pl.multiple_of(bk * PBLK, PBLK)
-            oh = (pb_iota == (pcf - bk * PBLK)).astype(_F32)
-            blk = atab_ref[pl.ds(off, PBLK), :]       # [PBLK, NATTR]
-            b0 = blk.astype(jnp.bfloat16).astype(_F32)
-            br = blk - b0
-            b1 = br.astype(jnp.bfloat16).astype(_F32)
-            blk9 = jnp.concatenate([b0, b1, br - b1], axis=1)
-            at9 = jax.lax.dot_general(
-                blk9, oh, (((0,), (0,)), ((), ())),
-                preferred_element_type=_F32,
-                precision=jax.lax.Precision.DEFAULT)  # [3*NATTR, TILE]
-            return at_acc + (at9[:NATTR] + at9[NATTR:2 * NATTR]
-                             + at9[2 * NATTR:])
-
-        at_acc = jax.lax.fori_loop(pmin // PBLK, pmax // PBLK + 1,
-                                   blk_body,
-                                   jnp.zeros((NATTR, TILE), _F32))
-        return at_acc.reshape(NATTR, RAY_SUB, LANES)
-
-    def occluded_grouped(ox, oy, oz, dx, dy, dz, t_max):
-        """Two-level segment/AABB-culled any-hit over the dense shadow
-        tables. MIS accept window (RAY_TMIN < t < t_max) — the variant-B
-        shadow loop's lower bound is 0. Early-out when every lane is
-        already occluded; f32 0/1 carry (Mosaic cannot legalize i1-vector
-        loop carries)."""
-        ivx, ivy, ivz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
-        t_seg = t_max * (1.0 + T_FAR_SLACK) + T_FAR_SLACK
-        n_super = sh_sup_ref.shape[1]
-
-        def tri_group(g, occ_f):
-            aabb6 = [sh_aabb_ref[r, g] for r in range(6)]
-            tmin, tmax = _slab_interval(aabb6, ox, oy, oz, ivx, ivy, ivz)
-            reach = (tmin <= jnp.minimum(tmax, t_seg)) & (occ_f < 0.5)
-            any_hit = jnp.max(jnp.where(reach, 1.0, 0.0)) > 0.5
-
-            def run(occ_f):
-                occ_c = occ_f > 0.5
-                base = g * GROUP
-                for k in range(GROUP):
-                    idx = base + k
-                    (nx, ny, nz, c0, s1x, s1y, s1z, c1,
-                     s2x, s2y, s2z, c2) = tuple(
-                        shadow_ref[r, idx] for r in range(12))
-                    den = dx * nx + dy * ny + dz * nz
-                    num = c0 - (ox * nx + oy * ny + oz * nz)
-                    ok = jnp.abs(den) >= 1e-12
-                    tt = num / den
-                    u = (ox * s1x + oy * s1y + oz * s1z) \
-                        + tt * (dx * s1x + dy * s1y + dz * s1z) - c1
-                    v = (ox * s2x + oy * s2y + oz * s2z) \
-                        + tt * (dx * s2x + dy * s2y + dz * s2z) - c2
-                    occ_c = occ_c | (ok & (tt > RAY_TMIN) & (tt < t_max)
-                                     & (jnp.minimum(u, v) >= 0.0)
-                                     & (u + v <= 1.0))
-                return jnp.where(occ_c, 1.0, 0.0)
-
-            return jax.lax.cond(any_hit, run, lambda o: o, occ_f)
-
-        def super_body(sg, occ_f):
-            s6 = [sh_sup_ref[r, sg] for r in range(6)]
-            tmin, tmax = _slab_interval(s6, ox, oy, oz, ivx, ivy, ivz)
-            reach = (tmin <= jnp.minimum(tmax, t_seg)) & (occ_f < 0.5)
-            any_hit = jnp.max(jnp.where(reach, 1.0, 0.0)) > 0.5
-
-            def run(occ_f):
-                for k in range(SUPER):
-                    occ_f = tri_group(sg * SUPER + k, occ_f)
-                return occ_f
-
-            return jax.lax.cond(any_hit, run, lambda o: o, occ_f)
-
-        occ_f = jax.lax.fori_loop(0, n_super, super_body,
-                                  jnp.zeros((RAY_SUB, LANES), _F32))
-        return occ_f > 0.5
-
-    def sphere_roots(sph, ox, oy, oz, dx, dy, dz):
-        """Quadratic ray/sphere roots (shaders_old.metal:108-136; same op
-        order as intersect._sphere_candidates for oracle parity)."""
-        scx, scy, scz, rad = sph
-        ocx, ocy, ocz = ox - scx, oy - scy, oz - scz
-        a = dx * dx + dy * dy + dz * dz
-        b = 2.0 * (ocx * dx + ocy * dy + ocz * dz)
-        c = (ocx * ocx + ocy * ocy + ocz * ocz) - rad * rad
-        disc = b * b - 4.0 * a * c
-        pos = disc > 0.0
-        sq = jnp.sqrt(jnp.where(pos, disc, 1.0))
-        t1 = (-b - sq) / (2.0 * a)
-        t2 = (-b + sq) / (2.0 * a)
-        return pos, t1, t2
-
-    def precompute_origin(ox, oy, oz):
-        """Per-primitive origin dot products for a FIXED ray origin —
-        hoisted out of the sample loop when every sample's secondary rays
-        start from the same (camera-hit) point. The expression trees are
-        identical to the in-loop forms (num = c0 - (o.n); u = (o.s1) + ...
-        - c1), so reusing them is bit-identical hoisting, not a
-        reassociation — decisions cannot move. Saves ~15 VPU ops per
-        triangle (and the whole quadratic setup per sphere) per closest
-        test, x (2 closest + 1 probe) x samples."""
-        if grouped:
-            return None
-        pre_t = []
-        for tri in tris:
-            nx, ny, nz, c0, s1x, s1y, s1z, c1, s2x, s2y, s2z, c2 = tri
-            pre_t.append((ox * nx + oy * ny + oz * nz,
-                          ox * s1x + oy * s1y + oz * s1z,
-                          ox * s2x + oy * s2y + oz * s2z))
-        pre_s = []
-        for sph in sphs:
-            scx, scy, scz, rad = sph[:4]
-            ocx, ocy, ocz = ox - scx, oy - scy, oz - scz
-            pre_s.append((ocx, ocy, ocz,
-                          (ocx * ocx + ocy * ocy + ocz * ocz) - rad * rad))
-        return pre_t, pre_s
-
-    def sphere_roots_pre(pre, dx, dy, dz):
-        """sphere_roots with the origin terms precomputed (bit-identical
-        op order: b = 2 (oc.d), c = oc.oc - r^2 reused)."""
-        ocx, ocy, ocz, c = pre
-        a = dx * dx + dy * dy + dz * dz
-        b = 2.0 * (ocx * dx + ocy * dy + ocz * dz)
-        disc = b * b - 4.0 * a * c
-        pos = disc > 0.0
-        sq = jnp.sqrt(jnp.where(pos, disc, 1.0))
-        t1 = (-b - sq) / (2.0 * a)
-        t2 = (-b + sq) / (2.0 * a)
-        return pos, t1, t2
-
-    def closest_full(ox, oy, oz, dx, dy, dz, pre=None):
+    def closest_full(ox, oy, oz, dx, dy, dz):
         """Closest hit returning full shading attrs. Only (t_best, prim_f)
-        are carried through the primitive loop; the attribute planes come
-        from one post-loop one-hot [NATTR, P] @ [P, TILE] MXU matmul —
-        exact for 0/1 one-hot operands under HIGHEST (same trick as
-        pallas_path.closest). ``pre``: precompute_origin result for this
-        exact origin (bit-identical diet for per-sample calls)."""
-        t_best = jnp.full((RAY_SUB, LANES), BIG, _F32)
+        are carried through the primitive loop; the attributes are gathered
+        for the winner afterwards."""
+        t_best = jnp.full((TILE,), BIG, _F32)
         prim_f = t_best * 0.0 - 1.0
-        if grouped:
-            t_best, prim_f = closest_tris_grouped(ox, oy, oz, dx, dy, dz,
-                                                  t_best, prim_f)
-        for t_idx, tri in enumerate(tris):
-            nx, ny, nz, c0, s1x, s1y, s1z, c1, s2x, s2y, s2z, c2 = tri
-            if pre is None:
-                on = ox * nx + oy * ny + oz * nz
-                a1 = ox * s1x + oy * s1y + oz * s1z
-                a2 = ox * s2x + oy * s2y + oz * s2z
-            else:
-                on, a1, a2 = pre[0][t_idx]
-            den = dx * nx + dy * ny + dz * nz
-            num = c0 - on
-            ok = jnp.abs(den) >= 1e-12
-            # Raw divide: guarded lanes produce Inf/NaN, every comparison on
-            # them is false, and ``ok`` stays in the accept mask — decisions
-            # (and winning-lane t values) exactly match the oracle's
-            # selected-divide form at one fewer select per primitive.
-            tt = num / den
-            u = a1 + tt * (dx * s1x + dy * s1y + dz * s1z) - c1
-            v = a2 + tt * (dx * s2x + dy * s2y + dz * s2z) - c2
-            closer = (ok & (tt > RAY_TMIN) & (tt < RAY_TMAX)
-                      & (jnp.minimum(u, v) >= 0.0) & (u + v <= 1.0)
-                      & (tt < t_best))
-            t_best = jnp.where(closer, tt, t_best)
-            prim_f = jnp.where(closer, _F32(t_idx), prim_f)
-        # Analytic spheres after triangles (ties keep the triangle, like the
-        # oracle's first-min argmin over [tris..., spheres...]).
-        for s_idx, sph in enumerate(sphs):
-            if pre is None:
-                spos, t1, t2 = sphere_roots(sph, ox, oy, oz, dx, dy, dz)
-            else:
-                spos, t1, t2 = sphere_roots_pre(pre[1][s_idx], dx, dy, dz)
-            t1_ok = (t1 > RAY_TMIN) & (t1 < RAY_TMAX)
-            t2_ok = (t2 > RAY_TMIN) & (t2 < RAY_TMAX)
-            tt = jnp.where(t1_ok, t1, t2)
-            closer = spos & (t1_ok | t2_ok) & (tt < t_best)
-            t_best = jnp.where(closer, tt, t_best)
-            prim_f = jnp.where(closer, _F32(num_tris + s_idx), prim_f)
+        t_best, prim_f = closest_tris(tri_ref, aabb_ref, n_groups,
+                                      ox, oy, oz, dx, dy, dz, t_best, prim_f)
+        t_best, prim_f = spheres_closest(sph_ref, num_tris, num_spheres,
+                                         ox, oy, oz, dx, dy, dz,
+                                         t_best, prim_f)
         hit = t_best < BIG * 0.5
+        # Miss lanes gather primitive 0; every consumer gates by ``hit``.
         pc = jnp.clip(prim_f, 0.0, _F32(n_prims - 1)).astype(_I32)
-        if grouped:
-            at = fetch_grouped(pc, hit)
-        else:
-            onehot = (p_iota == pc.reshape(1, TILE)).astype(_F32)
-            at9 = jax.lax.dot_general(
-                atab9, onehot, (((1,), (0,)), ((), ())),
-                preferred_element_type=_F32,
-                precision=jax.lax.Precision.DEFAULT)  # [3*NATTR, TILE]
-            at = at9[:NATTR] + at9[NATTR:2 * NATTR] + at9[2 * NATTR:]
-            at = at.reshape(NATTR, RAY_SUB, LANES)
+        at = [atab_ref[r, pc] for r in range(NATTR)]
         nhx, nhy, nhz = at[0], at[1], at[2]
         if num_spheres:
             # Sphere normal: (hit point - center) normalized
             # (shaders_old.metal:122-123); select over the triangle normal
             # (zeros in the table's sphere columns).
             sphere_won = hit & (prim_f >= _F32(num_tris))
-            wcx, wcy, wcz = at[9], at[10], at[11]
             t_s = jnp.where(sphere_won, t_best, 0.0)
-            nvx = ox + dx * t_s - wcx
-            nvy = oy + dy * t_s - wcy
-            nvz = oz + dz * t_s - wcz
+            nvx = ox + dx * t_s - at[9]
+            nvy = oy + dy * t_s - at[10]
+            nvz = oz + dz * t_s - at[11]
             inv = jax.lax.rsqrt(jnp.maximum(
                 nvx * nvx + nvy * nvy + nvz * nvz, 1e-6))
             nhx = jnp.where(sphere_won, nvx * inv, nhx)
@@ -589,56 +297,17 @@ def _mis_kernel(config: RenderConfig, n_pixels: int, num_tris: int,
         return (hit, t_best, prim_f, nhx, nhy, nhz, at[3], at[4], at[5],
                 at[6], at[7], at[8])
 
-    probe_indices = (list(range(num_tris)) if occluders is None else
-                     [i for i in range(num_tris) if occluders[i]])
-
-    def light_reachable(ox, oy, oz, dx, dy, dz, t_max, pre=None):
+    def light_reachable(ox, oy, oz, dx, dy, dz, t_max):
         """No occluder strictly short of the light-sample distance — the
         well-conditioned form of the reference's closest-hit-is-emissive
         probe (shaders.metal:519-541; see render._direct_light_contribution
-        for why). Single running tile. ``occluders`` statically culls
-        triangles that provably cannot block a surface->light segment
-        (intersect.potential_occluders); decisions are bit-identical.
-        ``pre``: precompute_origin for this exact origin (indexed by the
-        ORIGINAL primitive id — the cull only selects rows)."""
-        if grouped:
-            occ = occluded_grouped(ox, oy, oz, dx, dy, dz, t_max)
-            for s_idx, sph in enumerate(sphs):
-                spos, t1, t2 = sphere_roots(sph, ox, oy, oz, dx, dy, dz)
-                t1_ok = (t1 > RAY_TMIN) & (t1 < t_max)
-                t2_ok = (t2 > RAY_TMIN) & (t2 < t_max)
-                occ = occ | (spos & (t1_ok | t2_ok))
-            return ~occ
-        occ = jnp.zeros((RAY_SUB, LANES), bool)
-        for t_idx in probe_indices:
-            tri = tris[t_idx]
-            nx, ny, nz, c0, s1x, s1y, s1z, c1, s2x, s2y, s2z, c2 = tri[:12]
-            if pre is None:
-                on = ox * nx + oy * ny + oz * nz
-                a1 = ox * s1x + oy * s1y + oz * s1z
-                a2 = ox * s2x + oy * s2y + oz * s2z
-            else:
-                on, a1, a2 = pre[0][t_idx]
-            den = dx * nx + dy * ny + dz * nz
-            num = c0 - on
-            ok = jnp.abs(den) >= 1e-12
-            # Raw divide: guarded lanes produce Inf/NaN, every comparison on
-            # them is false, and ``ok`` stays in the accept mask — decisions
-            # (and winning-lane t values) exactly match the oracle's
-            # selected-divide form at one fewer select per primitive.
-            tt = num / den
-            u = a1 + tt * (dx * s1x + dy * s1y + dz * s1z) - c1
-            v = a2 + tt * (dx * s2x + dy * s2y + dz * s2z) - c2
-            occ = occ | (ok & (tt > RAY_TMIN) & (tt < t_max)
-                         & (jnp.minimum(u, v) >= 0.0) & (u + v <= 1.0))
-        for s_idx, sph in enumerate(sphs):
-            if pre is None:
-                spos, t1, t2 = sphere_roots(sph, ox, oy, oz, dx, dy, dz)
-            else:
-                spos, t1, t2 = sphere_roots_pre(pre[1][s_idx], dx, dy, dz)
-            t1_ok = (t1 > RAY_TMIN) & (t1 < t_max)
-            t2_ok = (t2 > RAY_TMIN) & (t2 < t_max)
-            occ = occ | (spos & (t1_ok | t2_ok))
+        for why). ``occluders`` statically culls triangles that provably
+        cannot block a surface->light segment
+        (intersect.potential_occluders); decisions are bit-identical."""
+        occ = occluded_tris(shadow_ref, sh_aabb_ref, n_groups_sh,
+                            ox, oy, oz, dx, dy, dz, RAY_TMIN, t_max)
+        occ = spheres_occluded(sph_ref, num_spheres, occ, ox, oy, oz,
+                               dx, dy, dz, RAY_TMIN, t_max)
         return ~occ
 
     def square_light_pdf(p_x, p_y, p_z, dx, dy, dz):
@@ -652,11 +321,9 @@ def _mis_kernel(config: RenderConfig, n_pixels: int, num_tris: int,
 
     def direct_light(p_x, p_y, p_z, nx, ny, nz, inx, iny, inz,
                      dfr, dfg, dfb, met, rgh, u0, u1, active,
-                     use_heuristic, pre=None):
+                     use_heuristic):
         """calculateDirectLightSamplingContribution (shaders.metal:519-541).
-        ``u0, u1`` are SMEM scalars; the light sample point is scalar too.
-        ``pre``: precompute_origin for (p + n*1e-4) when the origin is
-        sample-invariant (strategy 1 from the camera hit)."""
+        ``u0, u1`` are table scalars; the light sample point is scalar too."""
         ox = p_x + nx * 1e-4
         oy = p_y + ny * 1e-4
         oz = p_z + nz * 1e-4
@@ -674,7 +341,7 @@ def _mis_kernel(config: RenderConfig, n_pixels: int, num_tris: int,
         ldx, ldy, ldz = tox / dist, toy / dist, toz / dist
         pdf_l = square_light_pdf(p_x, p_y, p_z, ldx, ldy, ldz)
         reach = light_reachable(ox, oy, oz, ldx, ldy, ldz,
-                                dist * (1.0 - 1e-4), pre=pre)
+                                dist * (1.0 - 1e-4))
         hit_light = active & reach
         vx, vy, vz = -inx, -iny, -inz
         br, bg, bb = _brdf(vx, vy, vz, nx, ny, nz, dfr, dfg, dfb, met, rgh,
@@ -695,23 +362,21 @@ def _mis_kernel(config: RenderConfig, n_pixels: int, num_tris: int,
 
     def bounce_strategy(p_x, p_y, p_z, nx, ny, nz, inx, iny, inz,
                         dfr, dfg, dfb, met, rgh, active,
-                        sdx, sdy, sdz, pdf_self, w, su0, su1, pre=None):
+                        sdx, sdy, sdz, pdf_self, w, su0, su1):
         """Shared cosine/VNDF body (shaders.metal:562-623). Returns the rgb
         contribution plus the discrete decisions (winning prim, secondary
-        light reach) for the record stream. ``pre``: precompute_origin for
-        (p + n*1e-4) — the same sample-invariant origin as strategy 1's
-        probe."""
+        light reach) for the record stream."""
         ox = p_x + nx * 1e-4
         oy = p_y + ny * 1e-4
         oz = p_z + nz * 1e-4
         (hit, t2, prim2, n2x, n2y, n2z, d2r, d2g, d2b, m2, r2,
-         isem2) = closest_full(ox, oy, oz, sdx, sdy, sdz, pre=pre)
+         isem2) = closest_full(ox, oy, oz, sdx, sdy, sdz)
         vx, vy, vz = -inx, -iny, -inz
         br, bg, bb = _brdf(vx, vy, vz, nx, ny, nz, dfr, dfg, dfb, met, rgh,
                            sdx, sdy, sdz)
         # Double-where reciprocal (mirrors render._bounce_strategy): the
         # VNDF pdf is exactly 0 on roughness-0 lanes; 1/0 = inf would make
-        # the weighted product NaN in reverse mode (real-TPU finding).
+        # the weighted product NaN in reverse mode.
         pdf_ok = pdf_self > 0.0
         inv_pdf = jnp.where(pdf_ok, 1.0 / jnp.where(pdf_ok, pdf_self, 1.0),
                             0.0)
@@ -764,9 +429,7 @@ def _mis_kernel(config: RenderConfig, n_pixels: int, num_tris: int,
          isem) = closest_full(ox, oy, oz, dx, dy, dz)
         hit = hit & in_image
         if emit_records:
-            # Record blocks are per (tile, camera ray) grid step — the
-            # whole cam block / per-sample slices belong to this ray.
-            rec_refs[0][...] = (
+            rec_refs[0][pl.ds(i_i32 * TILE, TILE)] = (
                 jnp.where(hit, prim_cam + 1.0, 0.0)).astype(_I32)
         cam_hit_light = hit & (isem > 0.5)
         acc_r = acc_r + jnp.where(cam_hit_light, ler, 0.0)
@@ -780,14 +443,6 @@ def _mis_kernel(config: RenderConfig, n_pixels: int, num_tris: int,
         p_y = oy + dy * t_safe
         p_z = oz + dz * t_safe
 
-        # The secondary/probe origin (p + n*1e-4) is the SAME for every
-        # sample of this camera ray — hoist its per-primitive dot products
-        # out of the sample loop (precompute_origin: bit-identical values,
-        # ~15 fewer VPU ops per triangle per closest/probe test, the
-        # single biggest per-sample cost).
-        pre_off = precompute_origin(p_x + nhx * 1e-4, p_y + nhy * 1e-4,
-                                    p_z + nhz * 1e-4)
-
         def one_sample(s_i32, c3):
             m_r, m_g, m_b = c3
             tab = [tab_ref[k, s_i32] for k in range(NTAB)]
@@ -796,7 +451,7 @@ def _mis_kernel(config: RenderConfig, n_pixels: int, num_tris: int,
             s1r, s1g, s1b, reach1 = direct_light(
                 p_x, p_y, p_z, nhx, nhy, nhz, dx, dy, dz,
                 dfr, dfg, dfb, met, rgh, tab[TAB_LU0], tab[TAB_LU1],
-                surf, True, pre=pre_off)
+                surf, True)
 
             vx, vy, vz = -dx, -dy, -dz
             tx, ty, tz, bx, by, bz = _ortho_basis(nhx, nhy, nhz)
@@ -817,8 +472,7 @@ def _mis_kernel(config: RenderConfig, n_pixels: int, num_tris: int,
             s2r, s2g, s2b, prim_c, reach2 = bounce_strategy(
                 p_x, p_y, p_z, nhx, nhy, nhz, dx, dy, dz,
                 dfr, dfg, dfb, met, rgh, surf,
-                cdx, cdy, cdz, pdf_c, w_c, tab[TAB_CSU0], tab[TAB_CSU1],
-                pre=pre_off)
+                cdx, cdy, cdz, pdf_c, w_c, tab[TAB_CSU0], tab[TAB_CSU1])
 
             # Strategy 3: VNDF (vndfRay, shaders.metal:382-435).
             alpha = rgh * rgh
@@ -845,8 +499,8 @@ def _mis_kernel(config: RenderConfig, n_pixels: int, num_tris: int,
             why = ty * nhx_ + by * nhy_ + nhy * nhz_
             whz = tz * nhx_ + bz * nhy_ + nhz * nhz_
             whx, why, whz = _normalize3(whx, why, whz)
-            # reflect(-v, wh) = -v + 2 (v . wh) wh... reference reflects the
-            # incoming dir: reflect(d, wh) = d - 2 (d . wh) wh.
+            # The reference reflects the incoming dir:
+            # reflect(d, wh) = d - 2 (d . wh) wh.
             ddh = _dot3(dx, dy, dz, whx, why, whz)
             vdx = dx - 2.0 * ddh * whx
             vdy = dy - 2.0 * ddh * why
@@ -858,8 +512,7 @@ def _mis_kernel(config: RenderConfig, n_pixels: int, num_tris: int,
             s3r, s3g, s3b, prim_v, reach3 = bounce_strategy(
                 p_x, p_y, p_z, nhx, nhy, nhz, dx, dy, dz,
                 dfr, dfg, dfb, met, rgh, surf,
-                vdx, vdy, vdz, pdf_v2, w_v, tab[TAB_VSU0], tab[TAB_VSU1],
-                pre=pre_off)
+                vdx, vdy, vdz, pdf_v2, w_v, tab[TAB_VSU0], tab[TAB_VSU1])
 
             if emit_records:
                 # Exact int32 pack (disjoint bit ranges => adds == ORs);
@@ -870,8 +523,8 @@ def _mis_kernel(config: RenderConfig, n_pixels: int, num_tris: int,
                     + jnp.where(reach3, 4, 0)
                     + (prim_c + 1.0).astype(_I32) * (1 << REC_SHIFT_C)
                     + (prim_v + 1.0).astype(_I32) * (1 << REC_SHIFT_V))
-                ss = pl.ds(s_i32 * RAY_SUB, RAY_SUB)
-                rec_refs[1][ss, :] = packed
+                rec_refs[1][pl.ds((i_i32 * s_per + s_i32) * TILE, TILE)] = \
+                    packed
 
             m1, m2, m3 = (_F32(1.0) if on else _F32(0.0)
                           for on in DEBUG_STRATEGY_MASK)
@@ -889,39 +542,19 @@ def _mis_kernel(config: RenderConfig, n_pixels: int, num_tris: int,
         return acc_r, acc_g, acc_b
 
     zero = px * 0.0
-    if emit_records:
-        # 2-D grid (tile, camera ray): each step handles ONE camera ray so
-        # its record block stays a VMEM-sized [RAY_SUB * s_per, LANES]
-        # slice; the hdr block is revisited across the inner grid dim and
-        # accumulates (sequential TPU grid).
-        cr_i = pl.program_id(1)
-        acc_r, acc_g, acc_b = one_camera_ray(cr_i, (zero, zero, zero))
-
-        @pl.when(cr_i == 0)
-        def _():
-            out_r_ref[...] = jnp.zeros_like(out_r_ref)
-            out_g_ref[...] = jnp.zeros_like(out_g_ref)
-            out_b_ref[...] = jnp.zeros_like(out_b_ref)
-
-        out_r_ref[...] += acc_r
-        out_g_ref[...] += acc_g
-        out_b_ref[...] += acc_b
-    else:
-        acc_r, acc_g, acc_b = jax.lax.fori_loop(
-            0, config.camera_rays, one_camera_ray, (zero, zero, zero))
-        out_r_ref[...] = acc_r
-        out_g_ref[...] = acc_g
-        out_b_ref[...] = acc_b
+    acc_r, acc_g, acc_b = jax.lax.fori_loop(
+        0, config.camera_rays, one_camera_ray, (zero, zero, zero))
+    out_r_ref[...] = acc_r
+    out_g_ref[...] = acc_g
+    out_b_ref[...] = acc_b
 
 
-def _pack_inputs(scene: Scene, config: RenderConfig,
-                 grouped: bool = False, occluders=None):
-    """Host-side marshalling (the reference's convert*/makeBuffer step).
-
-    ``grouped``: marshal for grouped traversal instead — the geometry
-    table zero-padded to GROUP granularity, the fetch table TRANSPOSED
-    and PBLK-padded, plus dense occluder-culled shadow geometry and the
-    two-level AABB table pairs (pallas_path.group_aabbs)."""
+def _pack_inputs(scene: Scene, config: RenderConfig, occluders=None):
+    """Host-side marshalling (the reference's convert*/makeBuffer step):
+    the geometry table zero-padded to GROUP granularity and its group
+    AABBs, the dense occluder-culled shadow table and its AABBs
+    (pallas_path.group_aabbs), camera, light, sample and attribute
+    tables."""
     compiled = compile_scene(scene.triangles, lane_pad=1)
     tri = jnp.stack([
         compiled.n[:, 0], compiled.n[:, 1], compiled.n[:, 2], compiled.c0,
@@ -934,17 +567,7 @@ def _pack_inputs(scene: Scene, config: RenderConfig,
         compiled.metallic, compiled.roughness,
     ])  # [NROWS, T]
 
-    cam = scene.camera
-    res_x, res_y = config.resolution
-    aspect = float(res_x // res_y) if config.integer_aspect else res_x / res_y
-    half_width = jnp.tan(jnp.asarray(cam.horizontal_fov, _F32) / 2.0)
-    half_height = half_width / _F32(aspect)
-    u, v, w = smp.camera_basis(jnp.asarray(cam.direction, _F32),
-                               jnp.asarray(cam.up, _F32))
-    cam_vec = jnp.concatenate([
-        jnp.asarray(cam.position, _F32), u * half_width, v * half_height, w,
-    ]).reshape(1, 12)
-
+    cam_vec = camera_vec(scene, config)
     light = scene.light
     lnorm = jnp.asarray(light.normal, _F32)
     lt, lb = smp.build_orthonormal_basis(lnorm)
@@ -961,7 +584,7 @@ def _pack_inputs(scene: Scene, config: RenderConfig,
     tabs = smp.mis_sample_table_rows(config.mis_samples,
                                      config.sampler)  # [NTAB, S]
 
-    # One-hot fetch table [NATTR, T + S] (row order matches _mis_kernel's
+    # Attribute table [NATTR, T + S] (row order matches _mis_kernel's
     # closest_full unpack): triangles first, then spheres.
     n_t = scene.triangles.num_triangles
     zt = jnp.zeros((3, n_t), _F32)
@@ -990,17 +613,13 @@ def _pack_inputs(scene: Scene, config: RenderConfig,
     else:
         sph = jnp.zeros((SROWS, 1), _F32)  # placeholder; loops are empty
         atab = tri_cols
-    if not grouped:
-        return tri, cam_vec, light_vec, tabs, sph, atab
     verts = jnp.asarray(scene.triangles.verts, _F32)
     tri_geo = pad_geo(tri[:12])
-    aabb_main, sup_main = group_aabbs(verts)
-    shadow_geo, aabb_shadow, sup_shadow = pack_shadow_tables(
-        tri, verts, occluders, tri_geo, aabb_main, sup_main)
-    n_pad = ((atab.shape[1] + PBLK - 1) // PBLK) * PBLK
-    atab_t = jnp.pad(atab, ((0, 0), (0, n_pad - atab.shape[1]))).T
-    return (tri_geo, cam_vec, light_vec, tabs, sph, atab_t, shadow_geo,
-            aabb_main, sup_main, aabb_shadow, sup_shadow)
+    aabb = group_aabbs(verts)
+    shadow_geo, aabb_shadow = pack_shadow_tables(tri, verts, occluders,
+                                                 tri_geo, aabb)
+    return (tri_geo, cam_vec, light_vec, tabs, sph, atab, aabb, shadow_geo,
+            aabb_shadow)
 
 
 def _render_mis_impl(scene: Scene, config: RenderConfig, interpret=None,
@@ -1009,145 +628,57 @@ def _render_mis_impl(scene: Scene, config: RenderConfig, interpret=None,
     """``local_n``/``rid_base``/``flat_output``: shard-local rendering for
     shard_map (parallel/fast.py) — render the ``local_n`` pixels starting
     at global pixel ``rid_base`` and return flat [local_n, 3] hdr."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    interpret = route.interpret_mode(interpret)
     n_pixels = config.num_pixels
     local_n = n_pixels if local_n is None else local_n
     if rid_base is None:
         rid_base = jnp.zeros((1, 1), jnp.int32)
     n_padded = ((local_n + TILE - 1) // TILE) * TILE
-    grid = (n_padded // TILE,)
     num_tris = scene.triangles.num_triangles
     num_spheres = scene.spheres.num_spheres
     assert num_tris + num_spheres < REC_MAX_PRIMS, "record encoding limit"
-    # Above the static-unroll threshold the kernel switches to GROUPED
-    # dynamic traversal (same tier structure as the variant-B path
-    # kernels) — arbitrary meshes, compile size O(GROUP).
-    grouped = num_tris > STATIC_UNROLL_MAX
-
     if occluders is not None:
         assert len(occluders) == num_tris, (len(occluders), num_tris)
-        occluders = tuple(bool(x) for x in occluders)
-    packed = _pack_inputs(scene, config, grouped=grouped,
-                          occluders=occluders if grouped else None)
-    if grouped:
-        (tri, cam_vec, light_vec, tabs, sph, atab, shadow_geo,
-         aabb_main, sup_main, aabb_shadow, sup_shadow) = packed
-    else:
-        tri, cam_vec, light_vec, tabs, sph, atab = packed
-    # Kernel reads no per-pixel input; pass a dummy so in/out specs line up
-    # with pallas_path's layout conventions.
-    dummy = jnp.zeros((n_padded // LANES, LANES), _F32)
-
-    # SMEM budget: share one geometry/AABB table set between the closest
-    # and shadow loops when a separate culled copy would overflow
-    # (pallas_path share_shadow note — decisions identical either way).
-    share_shadow = grouped and (
-        shadow_geo is tri
-        or 64 * (tri.shape[1] + shadow_geo.shape[1]) > 900_000)
+    (tri, cam_vec, light_vec, tabs, sph, atab, aabb, shadow_geo,
+     aabb_shadow) = _pack_inputs(scene, config, occluders=occluders)
     kernel = partial(_mis_kernel, config, n_pixels, num_tris, num_spheres,
-                     emit_records, None if grouped else occluders, grouped,
-                     share_shadow)
-    plane = jax.ShapeDtypeStruct((n_padded // LANES, LANES), _F32)
+                     emit_records, aabb.shape[1], aabb_shadow.shape[1])
+    plane = jax.ShapeDtypeStruct((n_padded,), _F32)
     s_per = config.mis_samples // 3
     cr_n = config.camera_rays
-    # Record-emitting runs use a (tile, camera ray) grid so each step's
-    # record output block is one camera ray's [RAY_SUB * s_per] slice (the
-    # whole-tile stream is s_per * camera_rays * 16 KB — VMEM-breaking at
-    # reference settings); the hdr blocks are revisited/accumulated across
-    # the inner dim.
-    if emit_records:
-        grid = (n_padded // TILE, cr_n)
-        tile_ix = lambda i, j: (i, 0)
-        const_ix = lambda i, j: (0, 0)
-        rec_ix = lambda i, j: (i * cr_n + j, 0)
-    else:
-        tile_ix = lambda i: (i, 0)
-        const_ix = lambda i: (0, 0)
-    out_spec = pl.BlockSpec((RAY_SUB, LANES), tile_ix,
-                            memory_space=pltpu.VMEM)
+    tile_spec = pl.BlockSpec((TILE,), lambda i: (i,))
     out_shapes = [plane, plane, plane]
-    out_spec_list = [out_spec, out_spec, out_spec]
+    out_specs = [tile_spec, tile_spec, tile_spec]
     if emit_records:
+        # Rows [tile, camera ray, TILE] and [tile, camera ray, sample, TILE].
         out_shapes += [
-            jax.ShapeDtypeStruct(((n_padded // LANES) * cr_n, LANES),
-                                 jnp.int32),
-            jax.ShapeDtypeStruct(((n_padded // LANES) * cr_n * s_per, LANES),
-                                 jnp.int32),
+            jax.ShapeDtypeStruct((n_padded * cr_n,), jnp.int32),
+            jax.ShapeDtypeStruct((n_padded * cr_n * s_per,), jnp.int32),
         ]
-        out_spec_list += [
-            pl.BlockSpec((RAY_SUB, LANES), rec_ix,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((RAY_SUB * s_per, LANES), rec_ix,
-                         memory_space=pltpu.VMEM),
+        out_specs += [
+            pl.BlockSpec((cr_n * TILE,), lambda i: (i,)),
+            pl.BlockSpec((cr_n * s_per * TILE,), lambda i: (i,)),
         ]
-    if grouped:
-        tri_spec = pl.BlockSpec(tri.shape, const_ix,
-                                memory_space=pltpu.SMEM)
-        atab_spec = pl.BlockSpec(atab.shape, const_ix,
-                                 memory_space=pltpu.VMEM)   # [P_pad, NATTR]
-        if share_shadow:
-            extra_specs = [
-                pl.BlockSpec(aabb_main.shape, const_ix,
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec(sup_main.shape, const_ix,
-                             memory_space=pltpu.SMEM),
-            ]
-            extra_inputs = (aabb_main, sup_main)
-        else:
-            extra_specs = [
-                pl.BlockSpec(shadow_geo.shape, const_ix,
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec(aabb_main.shape, const_ix,
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec(sup_main.shape, const_ix,
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec(aabb_shadow.shape, const_ix,
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec(sup_shadow.shape, const_ix,
-                             memory_space=pltpu.SMEM),
-            ]
-            extra_inputs = (shadow_geo, aabb_main, sup_main, aabb_shadow,
-                            sup_shadow)
-    else:
-        tri_spec = pl.BlockSpec((NROWS, num_tris), const_ix,
-                                memory_space=pltpu.SMEM)
-        atab_spec = pl.BlockSpec((NATTR, num_tris + num_spheres), const_ix,
-                                 memory_space=pltpu.VMEM)
-        extra_specs = []
-        extra_inputs = ()
+    tables = tuple(route.pad_pow2(t) for t in
+                   (cam_vec, light_vec, tri, sph, tabs, atab, aabb,
+                    shadow_geo, aabb_shadow))
     outs = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((RAY_SUB, LANES), tile_ix,
-                         memory_space=pltpu.VMEM),            # dummy
-            pl.BlockSpec((1, 1), const_ix,
-                         memory_space=pltpu.SMEM),            # rid_base
-            pl.BlockSpec((1, 12), const_ix,
-                         memory_space=pltpu.SMEM),            # camera
-            pl.BlockSpec((1, 17), const_ix,
-                         memory_space=pltpu.SMEM),            # light
-            tri_spec,                                         # triangles
-            pl.BlockSpec((SROWS, max(num_spheres, 1)), const_ix,
-                         memory_space=pltpu.SMEM),            # spheres
-            pl.BlockSpec((NTAB, s_per), const_ix,
-                         memory_space=pltpu.SMEM),            # sample tables
-            atab_spec,                                        # one-hot table
-            *extra_specs,
-        ],
-        out_specs=tuple(out_spec_list),
+        grid=(n_padded // TILE,),
+        in_specs=[pl.no_block_spec] * (1 + len(tables)),
+        out_specs=tuple(out_specs),
         out_shape=tuple(out_shapes),
+        backend="triton",
+        compiler_params=route.compiler_params(),
         interpret=interpret,
-    )(dummy, jnp.asarray(rid_base, jnp.int32).reshape(1, 1), cam_vec,
-      light_vec, tri, sph, tabs, atab, *extra_inputs)
-    r, g, b = outs[:3]
-    hdr = jnp.stack([r.reshape(-1), g.reshape(-1), b.reshape(-1)], axis=-1)
+        name="mis_trace",
+    )(jnp.asarray(rid_base, jnp.int32).reshape(1, 1), *tables)
+    hdr = jnp.stack(outs[:3], axis=-1)
     hdr = (hdr[:local_n] if flat_output
            else hdr[:n_pixels].reshape(config.height, config.width, 3))
     if emit_records:
-        # Raw tile-major planes, exactly as written — consumed relayout-free
-        # by the backward kernel (ops/pallas_mis_bwd.py).
+        # Raw tile-major planes, exactly as written — consumed
+        # relayout-free by the backward kernel (ops/pallas_mis_bwd.py).
         return hdr, tuple(outs[3:])
     return hdr
 

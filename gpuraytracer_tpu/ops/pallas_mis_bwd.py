@@ -1,20 +1,16 @@
-"""Hand-written Pallas backward for the variant-A MIS megakernel.
+"""Hand-written Pallas backward (Triton route) for the variant-A MIS
+megakernel.
 
 The trace kernel (ops/pallas_mis.py, ``emit_records=True``) writes the
 integrator's discrete decisions per (camera ray, sample, pixel): the
 camera/cosine/VNDF closest-hit winners and the three light-probe visibility
 bits — exactly what AD treats as piecewise constant. This kernel recomputes
-each sample's *continuous* math from those records entirely in VMEM — no
-ray-scene traversals, which is where the forward's FLOPs go — and reverses
-it with a HAND-WRITTEN sweep (the same recipe as the variant-B path
-backward, ops/pallas_shade.py).
-
-Through round 4 the reverse sweep was jax.vjp applied *inside the kernel
-body* per strategy: correct, but measured at 204 ms against a 53 ms modeled
-floor at reference settings (BASELINE.md roofline) — jax-generated reverse
-code keeps every linearization-point residual live across each strategy's
-sweep, and recomputes the sample-invariant frames per sample. Round 5
-replaces it:
+each sample's *continuous* math from those records on chip — no ray-scene
+traversals, which is where the forward's FLOPs go — and reverses it with a
+HAND-WRITTEN sweep (the same recipe as the variant-B path backward,
+ops/pallas_shade.py). Applying jax.vjp to each strategy inside the kernel
+would keep every linearization-point residual live across the strategy's
+sweep and re-derive the sample-invariant frames per sample; instead:
 
   * module-level forward/reverse pairs (``_fwd_brdf``/``_rev_brdf``,
     ``_fwd_vndf``, ``_fwd_smith_g1``, ``_fwd_dggx``, ``_fwd_lightpdf``,
@@ -29,13 +25,15 @@ replaces it:
     hand-derived, interleaving forward recompute with reverse math so
     residuals die within one sample's body.
 
-Cotangent outputs per tile, accumulated across the (camera ray, sample)
-loops and reduced once at the end:
-  * per-primitive table [P, ndif]: normal xyz, plane c0, diffuse rgb,
+Cotangent outputs per program (one ray tile x one camera ray), accumulated
+across the sample loop and added over programs by ``jnp.sum``:
+  * per-primitive table [ndif, P]: normal xyz, plane c0, diffuse rgb,
     metallic, roughness (+ a discarded is_emissive row) — and, for sphere
-    scenes, center xyz + radius (+ a discarded is_sphere row) — via one
-    [P, TILE] @ [TILE, ndif] one-hot MXU matmul per fetch site;
-  * camera (12) and light (17) scalars as running partial-sum planes.
+    scenes, center xyz + radius (+ a discarded is_sphere row) — by one-hot
+    sums per fetch site into the program's own partial block
+    (route.accumulate_rows);
+  * camera (12) and light (17) scalars as running per-lane partial sums,
+    reduced once per program.
 
 Scope: triangle AND sphere scenes. Sphere lanes replay the analytic
 quadratic t(center, radius) and the point normal (hit − center)/‖·‖ with
@@ -57,21 +55,23 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from .. import sampling as smp
 from ..intersect import compile_scene
 from ..types import RenderConfig, Scene
+from . import pallas_mis as pm
+from . import route
 from .pallas_mis import (
-    DEBUG_STRATEGY_MASK, LANES, NTAB, RAY_SUB, TILE,
+    DEBUG_STRATEGY_MASK, NTAB,
     REC_CODE_MASK, REC_SHIFT_C, REC_SHIFT_V,
     TAB_CSU0, TAB_CSU1, TAB_CU0, TAB_CU1, TAB_LU0, TAB_LU1,
     TAB_VSU0, TAB_VSU1, TAB_VU0, TAB_VU1,
     _cross3, _dot3, _hash_u32, _normalize3, _ortho_basis,
     _render_mis_impl, _u32_to_f32,
 )
-from .pallas_path import PBLK, STATIC_UNROLL_MAX
+from .pallas_path import camera_vec
 
 _F32 = jnp.float32
 _U32 = jnp.uint32
@@ -87,6 +87,7 @@ NDIF_SPH = 15
 NCAM = 12
 NLIGHT = 17
 NSCAL = NCAM + NLIGHT
+NSCAL_PAD = 32
 RAY_TMIN = 1e-3
 RAY_TMAX = 1e3
 
@@ -116,7 +117,7 @@ CS_G1 = 42     # Smith G1(|nh·v|, rgh) (VNDF pdf)
 CS_VNDV = 43   # |nh·v| (VNDF pdf denominator term)
 NCS = 44
 
-# Light vector layout ([1, NLIGHT] SMEM → broadcast planes): center(3),
+# Light vector layout ([1, NLIGHT] table → broadcast planes): center(3),
 # emitted_radiance(3), width, depth, normal(3), tangent(3), bitangent(3).
 L_C = 0
 L_E = 3
@@ -635,7 +636,7 @@ def _fwd_direct_light(lightp, q3, n3, inc3, df3, met, rgh, u0, u1, gate,
                       s_per_f, heuristic):
     """calculateDirectLightSamplingContribution (shaders.metal:519-541)
     with the probe's visibility decision supplied as the recorded ``gate``
-    (= active & reach). ``u0, u1`` are SMEM scalars. Mirrors the trace
+    (= active & reach). ``u0, u1`` are table scalars. Mirrors the trace
     kernel's direct_light minus the ray-scene probe."""
     ox = q3[0] + n3[0] * 1e-4
     oy = q3[1] + n3[1] * 1e-4
@@ -926,7 +927,7 @@ def _sample_fwd_rev(cs, lightp, tabsc, reach1, reach2, reach3,
                     d_cs, d_lightp, d_at_c, d_at_v, num_spheres):
     """Forward recompute + hand-written reverse for ONE MIS sample (all
     three strategies). ``gs`` is the upstream rgb cotangent already gated
-    by surf and scaled by 1/s_per; ``tabsc`` the sample's SMEM scalar
+    by surf and scaled by 1/s_per; ``tabsc`` the sample's table scalar
     draws. Accumulates into the d_* lists (mutated in place). The forward
     mirrors pallas_mis._mis_kernel.one_sample with the hoisted
     sample-invariant frames supplied via ``cs``."""
@@ -997,8 +998,7 @@ def _sample_fwd_rev(cs, lightp, tabsc, reach1, reach2, reach3,
 
     # ---- Strategy 2: cosine-weighted bounce -----------------------------
     if m2:
-        # Host-precomputed direction scalars (see _sample_tables): the
-        # kernel-scalar cos/sin/sqrt chains were a measured dominant cost.
+        # Host-precomputed direction scalars (see _sample_tables).
         w0 = tabsc[TAB_W0C]
         w1 = tabsc[TAB_W1C]
         cth = tabsc[TAB_CTH]
@@ -1097,27 +1097,20 @@ def _sample_fwd_rev(cs, lightp, tabsc, reach1, reach2, reach3,
 
 
 def _mis_bwd_kernel(config: RenderConfig, n_pixels: int, n_prims: int,
-                    num_spheres: int, grouped: bool,
+                    num_spheres: int,
                     g_r_ref, g_g_ref, g_b_ref, crec_ref, srec_ref,
                     rid_base_ref, tab_ref, cam_ref, light_ref, stab_ref,
-                    dtab_ref, dscal_ref, *scratch):
-    """One (ray tile, camera ray) grid step: replay every sample from the
+                    dpart_ref, dscal_ref):
+    """One program = (ray tile, camera ray): replay every sample from the
     records and accumulate parameter cotangents via the HAND-WRITTEN
     reverse sweep (_sample_fwd_rev). The sample-invariant camera stage —
     camera ray, camera hit, ortho basis, VNDF view frame, offset origin —
-    runs (and is linearized via one jax.vjp) ONCE per (tile, camera ray);
-    the per-sample sweep consumes its outputs as independent planes and
-    its vjp is applied once to the accumulated cotangents at the end
-    (vjps are linear in the cotangent, so this is exactly the same
-    gradient at 1/s_per the camera-stage work).
-
-    ``grouped`` (high-triangle tier): ``tab_ref`` arrives TRANSPOSED
-    ([P_pad, ndif]) and both the one-hot fetch and the cotangent
-    accumulation contract per 128-primitive block — the fetch over the
-    blocks spanned by the tile's recorded winners, the accumulation as a
-    block-range scatter into a VMEM scratch (mirroring
-    pallas_shade._shade_bwd_kernel's grouped mode)."""
-    dtab_scr = scratch[0] if grouped else None
+    runs (and is linearized via one jax.vjp) ONCE per program; the
+    per-sample sweep consumes its outputs as independent planes and its
+    vjp is applied once to the accumulated cotangents at the end (vjps are
+    linear in the cotangent, so this is exactly the same gradient at
+    1/s_per the camera-stage work)."""
+    TILE = pm.TILE
     W = config.width
     H = config.height
     P = n_prims
@@ -1126,9 +1119,8 @@ def _mis_bwd_kernel(config: RenderConfig, n_pixels: int, n_prims: int,
 
     pid = pl.program_id(0)
     cr_i = pl.program_id(1)  # camera-ray index
-    sub = jax.lax.broadcasted_iota(_I32, (RAY_SUB, LANES), 0)
-    lanei = jax.lax.broadcasted_iota(_I32, (RAY_SUB, LANES), 1)
-    rid = rid_base_ref[0, 0] + pid * TILE + sub * LANES + lanei
+    lane = jax.lax.broadcasted_iota(_I32, (TILE,), 0)
+    rid = rid_base_ref[0, 0] + pid * TILE + lane
     pxi = rid % W
     pyi = rid // W
     px = pxi.astype(_F32)
@@ -1137,110 +1129,26 @@ def _mis_bwd_kernel(config: RenderConfig, n_pixels: int, n_prims: int,
 
     g3 = (g_r_ref[...], g_g_ref[...], g_b_ref[...])
     zero = px * 0.0
+    route.zero_partials(dpart_ref, ndif, dpart_ref.shape[2])
 
     cam12 = [cam_ref[0, k] for k in range(NCAM)]
     light17 = [light_ref[0, k] for k in range(NLIGHT)]
     # Broadcast the scalar parameters to planes so their cotangents come
     # back as planes (partial sums deferred to one final reduction per
-    # tile instead of 29 scalar reductions per sample).
+    # program instead of 29 scalar reductions per sample).
     camp0 = tuple(zero + c for c in cam12)
     lightp = tuple(zero + c for c in light17)
 
-    # Exact ONE-PASS fetch via the bf16 chunk-split (see pallas_shade.py:
-    # t0 = bf16(t), t1 = bf16(t - t0), t2 = the exact remainder — stacked
-    # along the output dim, one DEFAULT matmul, fold reconstructs f32
-    # exactly in any order) — 1/6 the MXU passes of the HIGHEST fetch.
-    if not grouped:
-        tabv = tab_ref[...]  # [ndif, P]
-        t0_ = tabv.astype(jnp.bfloat16).astype(_F32)
-        r1_ = tabv - t0_
-        t1_ = r1_.astype(jnp.bfloat16).astype(_F32)
-        tab9 = jnp.concatenate([t0_, t1_, r1_ - t1_], axis=0)  # [3*ndif, P]
-        p_iota = jax.lax.broadcasted_iota(_I32, (P, TILE), 0)
-    else:
-        pb_iota = jax.lax.broadcasted_iota(_I32, (PBLK, TILE), 0)
-
     def fetch(code):
-        """code (prim + 1, 0 = miss) -> (hit, key, at [ndif, RAY_SUB,
-        LANES]). Exact chunk-split one-hot MXU fetch; ``key`` is what
-        accum_tab needs to scatter the cotangents back — the [P, TILE]
-        one-hot (static mode) or (pc, hit) for the block-range scatter
-        (grouped mode, where miss lanes fetch zeros — consumers gate)."""
+        """code (prim + 1, 0 = miss) -> (hit, pc, at: ndif gathered
+        planes). Miss lanes gather primitive 0; consumers gate by hit."""
         prim = code - 1
         pc = jnp.clip(prim, 0, P - 1)
         hit = prim >= 0
-        if grouped:
-            pcf = pc.reshape(1, TILE)
-            pmin = jnp.min(jnp.where(hit, pc, P - 1))
-            pmax = jnp.max(jnp.where(hit, pc, 0))
+        return hit, pc, [tab_ref[r, pc] for r in range(ndif)]
 
-            def blk_body(bk, at_acc):
-                off = pl.multiple_of(bk * PBLK, PBLK)
-                oh = (pb_iota == (pcf - bk * PBLK)).astype(_F32)
-                blk = tab_ref[pl.ds(off, PBLK), :]       # [PBLK, ndif]
-                b0 = blk.astype(jnp.bfloat16).astype(_F32)
-                br = blk - b0
-                b1 = br.astype(jnp.bfloat16).astype(_F32)
-                blk9 = jnp.concatenate([b0, b1, br - b1], axis=1)
-                at9 = jax.lax.dot_general(
-                    blk9, oh, (((0,), (0,)), ((), ())),
-                    preferred_element_type=_F32,
-                    precision=jax.lax.Precision.DEFAULT)  # [3*ndif, TILE]
-                return at_acc + (at9[:ndif] + at9[ndif:2 * ndif]
-                                 + at9[2 * ndif:])
-
-            at_acc = jax.lax.fori_loop(pmin // PBLK, pmax // PBLK + 1,
-                                       blk_body,
-                                       jnp.zeros((ndif, TILE), _F32))
-            return hit, (pc, hit), at_acc.reshape(ndif, RAY_SUB, LANES)
-        onehot = (p_iota == pc.reshape(1, TILE)).astype(_F32)
-        at9 = jax.lax.dot_general(
-            tab9, onehot, (((1,), (0,)), ((), ())),
-            preferred_element_type=_F32,
-            precision=jax.lax.Precision.DEFAULT)  # [3*ndif, TILE]
-        at = at9[:ndif] + at9[ndif:2 * ndif] + at9[2 * ndif:]
-        return hit, onehot, at.reshape(ndif, RAY_SUB, LANES)
-
-    def accum_tab(dtab_acc, key, d_at):
-        """Cotangent accumulation with the THREE-chunk bf16 split: every
-        f32 splits exactly into 3 bf16 chunks, the one-hot is 0/1, and the
-        MXU accumulates in f32 — HIGHEST-equivalent accuracy at half its
-        passes (see pallas_shade.py's matching note). Grouped mode
-        scatters per 128-primitive block into the VMEM scratch (miss
-        lanes carry provably-zero cotangent rows — every contribution is
-        gated upstream — so excluding them from the range drops
-        nothing)."""
-        d = d_at.reshape(ndif, TILE)
-        p0 = d.astype(jnp.bfloat16).astype(_F32)
-        pr = d - p0
-        p1 = pr.astype(jnp.bfloat16).astype(_F32)
-        planes9 = jnp.concatenate([p0, p1, pr - p1], axis=0)  # [3*ndif, T]
-        if grouped:
-            pc, hit = key
-            pcf = pc.reshape(1, TILE)
-            pmin = jnp.min(jnp.where(hit, pc, P - 1))
-            pmax = jnp.max(jnp.where(hit, pc, 0))
-
-            def blk_body(bk, c):
-                off = pl.multiple_of(bk * PBLK, PBLK)
-                oh = (pb_iota == (pcf - bk * PBLK)).astype(_F32)
-                pb = jax.lax.dot_general(
-                    oh, planes9, (((1,), (1,)), ((), ())),
-                    preferred_element_type=_F32,
-                    precision=jax.lax.Precision.DEFAULT)  # [PBLK, 3*ndif]
-                dtab_scr[pl.ds(off, PBLK), :] += (
-                    pb[:, :ndif] + pb[:, ndif:2 * ndif]
-                    + pb[:, 2 * ndif:])
-                return c
-
-            jax.lax.fori_loop(pmin // PBLK, pmax // PBLK + 1, blk_body, 0)
-            return dtab_acc
-        part = jax.lax.dot_general(
-            key, planes9, (((1,), (1,)), ((), ())),
-            preferred_element_type=_F32,
-            precision=jax.lax.Precision.DEFAULT)  # [P, 3*ndif]
-        return dtab_acc + (part[:, :ndif] + part[:, ndif:2 * ndif]
-                           + part[:, 2 * ndif:])
+    def accum_tab(pc, hit, d_at):
+        route.accumulate_rows(dpart_ref, pc, hit, d_at, P)
 
     def sphere_t(at_, ox, oy, oz, dx, dy, dz, tt_plane):
         """Select the analytic sphere root on is_sphere lanes (mirrors
@@ -1284,7 +1192,7 @@ def _mis_bwd_kernel(config: RenderConfig, n_pixels: int, n_prims: int,
                                + _U32(12345)))
 
     crec = crec_ref[...]
-    cam_hit, onehot_cam, at_cam = fetch(crec)
+    cam_hit, pc_cam, at_cam = fetch(crec)
     cam_hit = cam_hit & in_image
     isem_cam = at_cam[9] > 0.5
     cam_hit_light = cam_hit & isem_cam
@@ -1355,9 +1263,9 @@ def _mis_bwd_kernel(config: RenderConfig, n_pixels: int, n_prims: int,
     gs = tuple(jnp.where(surf, g3[c] * inv_s, 0.0) for c in range(3))
 
     def one_sample(s_i32, carry):
-        d_cs_t, dtab_acc, dlightp_t = carry
+        d_cs_t, dlightp_t = carry
         tabsc = [stab_ref[k, s_i32] for k in range(NTAB_EXT)]
-        srec = srec_ref[pl.ds(s_i32 * RAY_SUB, RAY_SUB), :]
+        srec = srec_ref[pl.ds(s_i32 * TILE, TILE)]
         reach1 = (srec & 1) == 1
         reach2 = ((srec >> 1) & 1) == 1
         reach3 = ((srec >> 2) & 1) == 1
@@ -1375,19 +1283,17 @@ def _mis_bwd_kernel(config: RenderConfig, n_pixels: int, n_prims: int,
         d_at_c = [zero for _ in range(ndif)]
         d_at_v = [zero for _ in range(ndif)]
         if m2_:
-            hit_c, onehot_c, at_c3 = fetch(code_c)
-            at_c = [at_c3[k] for k in range(ndif)]
-            accum_sites.append((onehot_c, d_at_c))
+            hit_c, pc_c, at_c = fetch(code_c)
+            accum_sites.append((pc_c, hit_c, d_at_c))
         if m3_:
-            hit_v, onehot_v, at_v3 = fetch(code_v)
-            at_v = [at_v3[k] for k in range(ndif)]
-            accum_sites.append((onehot_v, d_at_v))
+            hit_v, pc_v, at_v = fetch(code_v)
+            accum_sites.append((pc_v, hit_v, d_at_v))
         _sample_fwd_rev(cs, lightp, tabsc, reach1, reach2, reach3,
                         hit_c, at_c, hit_v, at_v, surf, gs, s_per_f,
                         d_cs, d_lightp, d_at_c, d_at_v, num_spheres)
-        for onehot, d_at in accum_sites:
-            dtab_acc = accum_tab(dtab_acc, onehot, jnp.stack(d_at))
-        return tuple(d_cs), dtab_acc, tuple(d_lightp)
+        for pc_s, hit_s, d_at in accum_sites:
+            accum_tab(pc_s, hit_s, d_at)
+        return tuple(d_cs), tuple(d_lightp)
 
     # Camera-ray-hits-light term: acc += where(chl, emitted_radiance); its
     # only cotangent is d(emitted_radiance) — hand-accumulated.
@@ -1395,93 +1301,61 @@ def _mis_bwd_kernel(config: RenderConfig, n_pixels: int, n_prims: int,
     for c in range(3):
         zlight[L_E + c] = jnp.where(cam_hit_light, g3[c], 0.0)
 
-    if grouped:
-        # Grouped cotangents accumulate in the VMEM scratch (block-range
-        # dynamic stores); the fori carry holds only a dummy.
-        dtab_scr[...] = jnp.zeros_like(dtab_scr)
-        dtab0 = jnp.zeros((8, LANES), _F32)
-    else:
-        dtab0 = jnp.zeros((P, ndif), _F32)
     d_cs0 = tuple(zero for _ in range(NCS))
-    d_cs, dtab_acc, dlightp = jax.lax.fori_loop(
-        0, s_per, one_sample, (d_cs0, dtab0, tuple(zlight)))
+    d_cs, dlightp = jax.lax.fori_loop(
+        0, s_per, one_sample, (d_cs0, tuple(zlight)))
 
     d_at_cam, dcamp = vjp_hoist(d_cs)
-    dtab_acc = accum_tab(dtab_acc, onehot_cam, d_at_cam)
-
-    @pl.when((pid == 0) & (cr_i == 0))
-    def _():
-        dtab_ref[...] = jnp.zeros_like(dtab_ref)
-        dscal_ref[...] = jnp.zeros_like(dscal_ref)
-
-    dtab_ref[...] += dtab_scr[...] if grouped else dtab_acc
-    scal_row = jnp.concatenate(
-        [jnp.sum(p).reshape(1, 1) for p in (dcamp + dlightp)], axis=1)
-    dscal_ref[...] += scal_row
+    accum_tab(pc_cam, cam_hit, list(d_at_cam))
+    for k, p in enumerate(dcamp + dlightp):
+        dscal_ref[0, k] = jnp.sum(p)
 
 
 def _bwd_pallas(config: RenderConfig, n_prims: int, num_spheres: int,
                 g_planes, recs, tab, cam_vec, light_vec, stab,
-                interpret: bool, grouped: bool = False, rid_base=None,
-                local_n=None):
+                interpret: bool, rid_base=None, local_n=None):
+    """Run the backward kernel over a (ray tile, camera ray) grid; returns
+    (d_tab [ndif, P], d_scal [NSCAL]) summed over programs."""
+    TILE = pm.TILE
     n_pixels = config.num_pixels
     local_n = n_pixels if local_n is None else local_n
     if rid_base is None:
         rid_base = jnp.zeros((1, 1), jnp.int32)
-    n_padded = ((local_n + TILE - 1) // TILE) * TILE
+    n_tiles = (local_n + TILE - 1) // TILE
     cr_n = config.camera_rays
     s_per = config.mis_samples // 3
-    grid = (n_padded // TILE, cr_n)
     ndif = NDIF_SPH if num_spheres else NDIF
-    # Grouped mode: ``tab`` arrives TRANSPOSED [P_pad, ndif]; the dtab
-    # output covers the padding rows (their cotangents are zero — no
-    # record ever points at them) and is sliced by the caller.
-    p_out = tab.shape[0] if grouped else n_prims
-    tab_spec = (pl.BlockSpec((tab.shape[0], ndif), lambda i, j: (0, 0),
-                             memory_space=pltpu.VMEM)
-                if grouped else
-                pl.BlockSpec((ndif, n_prims), lambda i, j: (0, 0),
-                             memory_space=pltpu.VMEM))
+    p_pad = route.padded_prims(n_prims)
+    tab = jnp.pad(tab, ((0, route.next_pow2(tab.shape[0]) - tab.shape[0]),
+                        (0, p_pad - tab.shape[1])))
 
-    ray_spec = pl.BlockSpec((RAY_SUB, LANES), lambda i, j: (i, 0),
-                            memory_space=pltpu.VMEM)
+    ray_spec = pl.BlockSpec((TILE,), lambda i, j: (i,))
     kernel = partial(_mis_bwd_kernel, config, n_pixels, n_prims,
-                     num_spheres, grouped)
-    dtab, dscal = pl.pallas_call(
+                     num_spheres)
+    dpart, dscal = pl.pallas_call(
         kernel,
-        grid=grid,
+        grid=(n_tiles, cr_n),
         in_specs=[
             ray_spec, ray_spec, ray_spec,                    # g r/g/b
-            pl.BlockSpec((RAY_SUB, LANES),
-                         lambda i, j: (i * cr_n + j, 0),
-                         memory_space=pltpu.VMEM),           # camera records
-            pl.BlockSpec((RAY_SUB * s_per, LANES),
-                         lambda i, j: (i * cr_n + j, 0),
-                         memory_space=pltpu.VMEM),           # sample records
-            pl.BlockSpec((1, 1), lambda i, j: (0, 0),
-                         memory_space=pltpu.SMEM),           # rid_base
-            tab_spec,                                        # diff table
-            pl.BlockSpec((1, NCAM), lambda i, j: (0, 0),
-                         memory_space=pltpu.SMEM),           # camera
-            pl.BlockSpec((1, NLIGHT), lambda i, j: (0, 0),
-                         memory_space=pltpu.SMEM),           # light
-            pl.BlockSpec((NTAB_EXT, s_per), lambda i, j: (0, 0),
-                         memory_space=pltpu.SMEM),           # sample tables
-        ],
+            pl.BlockSpec((TILE,), lambda i, j: (i * cr_n + j,)),
+            pl.BlockSpec((s_per * TILE,), lambda i, j: (i * cr_n + j,)),
+        ] + [pl.no_block_spec] * 5,
         out_specs=(
-            pl.BlockSpec((p_out, ndif), lambda i, j: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, NSCAL), lambda i, j: (0, 0),
-                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((1, ndif, p_pad), lambda i, j: (i * cr_n + j, 0, 0)),
+            pl.BlockSpec((1, NSCAL_PAD), lambda i, j: (i * cr_n + j, 0)),
         ),
-        out_shape=(jax.ShapeDtypeStruct((p_out, ndif), _F32),
-                   jax.ShapeDtypeStruct((1, NSCAL), _F32)),
-        scratch_shapes=([pltpu.VMEM((p_out, ndif), _F32)] if grouped
-                        else []),
+        out_shape=(
+            jax.ShapeDtypeStruct((n_tiles * cr_n, ndif, p_pad), _F32),
+            jax.ShapeDtypeStruct((n_tiles * cr_n, NSCAL_PAD), _F32)),
+        backend="triton",
+        compiler_params=route.compiler_params(),
         interpret=interpret,
+        name="mis_backward",
     )(*g_planes, *recs, jnp.asarray(rid_base, jnp.int32).reshape(1, 1),
-      tab, cam_vec, light_vec, stab)
-    return dtab[:n_prims], dscal
+      tab, route.pad_pow2(cam_vec), route.pad_pow2(light_vec),
+      route.pad_pow2(stab))
+    return (jnp.sum(dpart, axis=0)[:, :n_prims],
+            jnp.sum(dscal, axis=0)[:NSCAL])
 
 
 # ---------------------------------------------------------------------------
@@ -1489,45 +1363,35 @@ def _bwd_pallas(config: RenderConfig, n_prims: int, num_spheres: int,
 # backward = the kernel above.
 # ---------------------------------------------------------------------------
 
-@partial(jax.custom_vjp, nondiff_argnums=(0, 1, 2))
-def _attach_grad_mis(config: RenderConfig, interpret, grouped, hdr, tab,
-                     cam_vec, light_vec, stab, recs, rid_base):
+@partial(jax.custom_vjp, nondiff_argnums=(0, 1))
+def _attach_grad_mis(config: RenderConfig, interpret, hdr, tab, cam_vec,
+                     light_vec, stab, recs, rid_base):
     return hdr
 
 
-def _attach_fwd(config, interpret, grouped, hdr, tab, cam_vec, light_vec,
-                stab, recs, rid_base):
+def _attach_fwd(config, interpret, hdr, tab, cam_vec, light_vec, stab, recs,
+                rid_base):
     return hdr, (tab, cam_vec, light_vec, stab, recs, rid_base)
 
 
-def _attach_bwd(config, interpret, grouped, resids, g):
-    import numpy as np
+def _attach_bwd(config, interpret, resids, g):
     tab, cam_vec, light_vec, stab, recs, rid_base = resids
     n_prims = tab.shape[1]
     num_spheres = 1 if tab.shape[0] == NDIF_SPH else 0
-    # Shard-local cotangent ([H, W, 3] single-chip; flat [local, 3] under
+    # Shard-local cotangent ([H, W, 3] single-device; flat [local, 3] under
     # shard_map).
     local_n = g.shape[0] * (g.shape[1] if g.ndim == 3 else 1)
-    n_padded = ((local_n + TILE - 1) // TILE) * TILE
+    n_padded = ((local_n + pm.TILE - 1) // pm.TILE) * pm.TILE
 
     gs = g.reshape(-1, 3)
     gs = jnp.pad(gs, ((0, n_padded - local_n), (0, 0)))
-    g_planes = tuple(gs[:, c].reshape(-1, LANES) for c in range(3))
-
-    if grouped:
-        # Transposed PBLK-padded view for the block-contracted kernel (a
-        # linear re-layout — the sliced dtab maps straight back).
-        p_pad = ((n_prims + PBLK - 1) // PBLK) * PBLK
-        tab_in = jnp.pad(tab, ((0, 0), (0, p_pad - n_prims))).T
-    else:
-        tab_in = tab
-    dtab, dscal = _bwd_pallas(config, n_prims, num_spheres, g_planes, recs,
-                              tab_in, cam_vec, light_vec, stab, interpret,
-                              grouped=grouped, rid_base=rid_base,
-                              local_n=local_n)
-    d_tab = dtab.T              # [ndif, P]; is_em/is_sphere rows are zero
-    d_cam = dscal[:, 0:NCAM]
-    d_light = dscal[:, NCAM:NSCAL]
+    g_planes = tuple(gs[:, c] for c in range(3))
+    d_tab, dscal = _bwd_pallas(config, n_prims, num_spheres, g_planes, recs,
+                               tab, cam_vec, light_vec, stab, interpret,
+                               rid_base=rid_base, local_n=local_n)
+    # d_tab: [ndif, P]; is_em/is_sphere rows are zero.
+    d_cam = dscal[0:NCAM].reshape(1, NCAM)
+    d_light = dscal[NCAM:NSCAL].reshape(1, NLIGHT)
     d_stab = jnp.zeros_like(stab)        # stop-gradient'd RNG draws
     d_recs = jax.tree.map(
         lambda x: np.zeros(x.shape, jax.dtypes.float0), recs)
@@ -1572,17 +1436,6 @@ def _pack_diff_inputs_mis(scene: Scene, config: RenderConfig):
             [jnp.concatenate([tab, sph_cols], axis=1), extra],
             axis=0)                                  # [NDIF_SPH, T + S]
 
-    cam = scene.camera
-    res_x, res_y = config.resolution
-    aspect = float(res_x // res_y) if config.integer_aspect else res_x / res_y
-    half_width = jnp.tan(jnp.asarray(cam.horizontal_fov, _F32) / 2.0)
-    half_height = half_width / _F32(aspect)
-    u, v, w = smp.camera_basis(jnp.asarray(cam.direction, _F32),
-                               jnp.asarray(cam.up, _F32))
-    cam_vec = jnp.concatenate([
-        jnp.asarray(cam.position, _F32), u * half_width, v * half_height, w,
-    ]).reshape(1, NCAM)
-
     light = scene.light
     lnorm = jnp.asarray(light.normal, _F32)
     lt, lb = smp.build_orthonormal_basis(lnorm)
@@ -1593,7 +1446,7 @@ def _pack_diff_inputs_mis(scene: Scene, config: RenderConfig):
         jnp.asarray(light.depth, _F32).reshape(1),
         lnorm.reshape(-1), lt.reshape(-1), lb.reshape(-1),
     ]).reshape(1, NLIGHT)
-    return tab, cam_vec, light_vec
+    return tab, camera_vec(scene, config), light_vec
 
 
 def _sample_tables(config: RenderConfig):
@@ -1604,12 +1457,10 @@ def _sample_tables(config: RenderConfig):
     as the forward kernel and oracle). Rows 10-15 precompute the cosine /
     VNDF direction chains' per-sample transcendentals host-side:
     w0 = cos(2πu0)·sinθ, w1 = sin(2πu0)·sinθ, cosθ (cosine strategy) and
-    k0, k1, cosθ_v (VNDF strategy). Measured: evaluating these 8
-    cos/sin/sqrt per sample on the kernel's SCALAR core was a dominant
-    per-sample cost of the reverse sweep (strategy-mask bisection, round
-    5); the values are pure functions of the static table, so the kernel
-    reads them as SMEM scalars instead. Computed with the same f32 jnp
-    ops the oracle uses — identical values on the CPU parity tier."""
+    k0, k1, cosθ_v (VNDF strategy). The values are pure functions of the
+    static table, so the kernel reads them as scalars instead of
+    evaluating 8 cos/sin/sqrt per sample. Computed with the same f32 jnp
+    ops the oracle uses."""
     rows = smp.mis_sample_table_rows(config.mis_samples, config.sampler)
     u_c0, u_c1 = rows[TAB_CU0], rows[TAB_CU1]
     phi = _F32(2.0 * PI) * u_c0
@@ -1630,26 +1481,22 @@ def _sample_tables(config: RenderConfig):
 def render_mis_fused(scene: Scene, config: RenderConfig,
                      interpret=None, occluders=None) -> jnp.ndarray:
     """Variant-A differentiable MIS render at megakernel speed: the trace
-    kernel's hdr with the record-replay Pallas backward attached. Handles
+    kernel's hdr with the record-replay backward attached. Handles
     triangle and sphere scenes (sphere lanes replay the analytic
     quadratic with hand-derived reverses — center/radius gradients at
-    kernel speed) at ANY triangle count: past
-    pallas_path.STATIC_UNROLL_MAX the trace kernel and this backward both
-    switch to grouped block-contracted traversal/fetch. Returns
-    [H, W, 3] raw accumulated HDR. ``occluders``: optional
-    ``intersect.potential_occluders(scene, config)`` static tuple culling
-    provably-non-occluding triangles from the light probes."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    grouped = scene.triangles.num_triangles > STATIC_UNROLL_MAX
+    kernel speed) at any triangle count (the backward is record-driven).
+    Returns [H, W, 3] raw accumulated HDR.
+    ``occluders``: optional ``intersect.potential_occluders(scene,
+    config)`` static tuple culling provably-non-occluding triangles from
+    the light probes."""
+    interpret = route.interpret_mode(interpret)
     hdr, recs = _render_mis_impl(jax.lax.stop_gradient(scene), config,
                                  interpret=interpret, emit_records=True,
                                  occluders=occluders)
     tab, cam_vec, light_vec = _pack_diff_inputs_mis(scene, config)
     stab = _sample_tables(config)
-    return _attach_grad_mis(config, interpret, grouped, hdr, tab, cam_vec,
-                            light_vec, stab, tuple(recs),
-                            jnp.zeros((1, 1), jnp.int32))
+    return _attach_grad_mis(config, interpret, hdr, tab, cam_vec, light_vec,
+                            stab, tuple(recs), jnp.zeros((1, 1), jnp.int32))
 
 
 def render_mis_fused_local(scene: Scene, config: RenderConfig, local_n,
@@ -1660,22 +1507,20 @@ def render_mis_fused_local(scene: Scene, config: RenderConfig, local_n,
     the hand-written backward attached. Cotangents for the replicated
     scene parameters are per-shard partials — shard_map's transpose
     inserts the psum."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    grouped = scene.triangles.num_triangles > STATIC_UNROLL_MAX
+    interpret = route.interpret_mode(interpret)
     hdr, recs = _render_mis_impl(jax.lax.stop_gradient(scene), config,
                                  interpret=interpret, emit_records=True,
                                  occluders=occluders, local_n=local_n,
                                  rid_base=rid_base, flat_output=True)
     tab, cam_vec, light_vec = _pack_diff_inputs_mis(scene, config)
     stab = _sample_tables(config)
-    return _attach_grad_mis(config, interpret, grouped, hdr, tab, cam_vec,
-                            light_vec, stab, tuple(recs), rid_base)
+    return _attach_grad_mis(config, interpret, hdr, tab, cam_vec, light_vec,
+                            stab, tuple(recs), rid_base)
 
 
 def render_mis_decoupled(scene: Scene, config: RenderConfig,
                          occluders=None) -> jnp.ndarray:
     """Fast differentiable variant-A render: the trace kernel forward with
-    the record-replay Pallas backward, for every scene type. Value matches
-    the megakernel/oracle; gradients match jax.grad of the oracle."""
+    the record-replay backward, for every scene type. Value matches the
+    megakernel/oracle; gradients match jax.grad of the oracle."""
     return render_mis_fused(scene, config, occluders=occluders)

@@ -1,25 +1,25 @@
-"""Pallas TPU megakernel for the variant-B path tracer.
+"""Variant-B path-tracing megakernel (Pallas, Triton route).
 
-The jnp reference (render.py) is HBM-bandwidth bound: every [rays, lanes]
-intermediate of every sampling/intersection op round-trips HBM. This kernel
-keeps a tile of rays VMEM-resident for the entire samples x bounces loop —
-the analog of the reference's one-thread-per-pixel ``pathTrace`` kernel
-(RTrace/raytrace.metal:11-111), restructured for the VPU.
+One program traces TILE rays through every sample and bounce, with each
+ray's origin, direction, throughput and closest-hit state kept on chip for
+the whole loop: the shape of the reference's one-thread-per-pixel
+``pathTrace`` kernel (RTrace/raytrace.metal:11-111). The jnp oracle
+(render.py) instead materialises [rays, triangles] work per bounce.
 
-Layout (v2 — measured 12x over the first [rays, tri-lanes] design):
-  * rays are DENSE on [RAY_SUB, 128] tiles: every per-ray op (camera gen,
-    Halton digits, NEE, cosine bounce) uses all 128 lanes;
-  * triangles are a STATIC unrolled loop over the ~36 real primitives, their
-    constants broadcast from SMEM scalars — no lane padding, no [rays, tris]
-    materialization, no argmin/gather: closest-hit is a running (t, attrs)
-    min carried across the loop, shadow occlusion a running OR.
+Triangles are tested by one loop for every scene size: a fori_loop over
+groups of GROUP triangles whose AABBs are tested first, skipping a group
+when no ray of the program can reach it, around a rolled loop over the
+group's triangles. Per-ray cost then follows the geometry a ray can reach
+rather than the scene size, and the kernel's code (hence its compile
+time) does not grow with the scene. Only (t, primitive) is carried
+through the loop; the winner's shading attributes are gathered from a
+table once per bounce.
 
-All math matches render._path_trace_chunk (same Halton dims, same reference
-quirks); parity is asserted against the jnp oracle in tests.
+All math matches render._path_trace_chunk (same Halton dimensions, same
+reference quirks); parity with the jnp oracle is asserted in the tests.
 
-Gradients: ``render_path_pallas`` carries a custom VJP whose backward is the
-VJP of the jnp reference (recompute-based). Forward speed from the kernel,
-backward correctness from XLA AD; a hand-written backward kernel is next.
+Gradients: ``render_path_pallas`` carries a custom VJP that re-traces with
+record emission and runs the hand-written backward (ops/pallas_shade.py).
 """
 from __future__ import annotations
 
@@ -29,74 +29,67 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from .. import sampling as smp
 from ..intersect import compile_scene
-from ..render import pixel_rng_offsets, render_path
+from ..render import pixel_rng_offsets
 from ..types import RenderConfig, Scene
+from . import route
 
 _F32 = jnp.float32
 _U32 = jnp.uint32
 _I32 = jnp.int32
 
-RAY_SUB = 32                 # sublanes of rays per tile
-LANES = 128
-TILE = RAY_SUB * LANES       # rays per grid step
+TILE = 128                   # rays per program (power of two)
 BIG = 1e30
 RAY_TMIN = 1e-3
 RAY_TMAX = 1e3
 # Record code = (prim + 1) + OCC_BIT * shadow_occluded; 0 = miss. Power of
 # two (int decode is an and-mask) and small enough that every code stays
-# exact in f32 (codes < 2^21 << 2^24) while leaving room for ~1M primitives
-# (the grouped-traversal scenes go far past the old 512 limit).
+# exact in f32 (codes < 2^21 << 2^24) while leaving room for ~1M primitives.
 OCC_BIT = 1 << 20
 
-# Triangle-count threshold between the two traversal modes. Below it the
-# primitive loop is a STATIC Python unroll over SMEM scalars (each scalar
-# load has a static address, Mosaic hoists all of them out of the sample
-# loop — the measured-fastest design for Cornell-scale scenes). Above it
-# the kernels switch to GROUPED traversal: a fori_loop over fixed-size
-# groups whose constants are read with DYNAMIC SMEM scalar indexing, so
-# trace/compile size is O(GROUP) instead of O(P) and scenes of 1k-100k
-# triangles compile in seconds. The attribute fetch likewise switches from
-# one [P, TILE] one-hot matmul to per-128-block one-hots (a [P, TILE]
-# one-hot at P=1k is 16 MB — past VMEM).
-STATIC_UNROLL_MAX = 64
-GROUP = 16     # triangles per dynamically-indexed inner unroll
-SUPER = 8      # groups per super-group (two-level AABB hierarchy)
-PBLK = 128     # primitives per one-hot fetch block (grouped mode)
-BLOCK = 64     # square-tile side: one grid step = 64x64 pixels (grouped)
+GROUP = 16     # triangles per group (one AABB test, then GROUP plane tests)
+BLOCK_W = 16   # pixel-tile width of a program's BLOCK_W x (TILE / BLOCK_W)
+               # block of pixels (single-device renders)
 
 
-def use_blocked_tiles(config: RenderConfig, grouped: bool,
-                      sharded: bool) -> bool:
-    """Square 64x64 pixel tiles for the grouped tier (see _path_kernel).
-    Requires divisible resolution; the sharded path keeps the linear
-    mapping (shards slice the linear pixel range)."""
-    return (grouped and not sharded
-            and config.width % BLOCK == 0 and config.height % BLOCK == 0)
+def _block_h() -> int:
+    return TILE // BLOCK_W
+
+
+def use_blocked_tiles(config: RenderConfig, sharded: bool) -> bool:
+    """BLOCK_W x (TILE / BLOCK_W) pixel tiles per program (see
+    _path_kernel). Requires divisible resolution; the sharded path keeps
+    the linear mapping (shards slice the linear pixel range)."""
+    return (not sharded and config.width % BLOCK_W == 0
+            and config.height % _block_h() == 0)
 
 
 def to_blocked(a: jnp.ndarray, config: RenderConfig) -> jnp.ndarray:
-    """Permute per-pixel [N, ...]-data from row-major to square-tile order
-    (pure reshape/transpose — XLA relayout, no gathers)."""
-    h, w = config.height, config.width
+    """Permute per-pixel [N, ...] data from row-major to pixel-tile order
+    (pure reshape/transpose)."""
+    h, w, bh = config.height, config.width, _block_h()
     rest = a.shape[1:]
     perm = (0, 2, 1, 3) + tuple(4 + i for i in range(len(rest)))
     return jnp.transpose(
-        a.reshape(h // BLOCK, BLOCK, w // BLOCK, BLOCK, *rest),
+        a.reshape(h // bh, bh, w // BLOCK_W, BLOCK_W, *rest),
         perm).reshape(-1, *rest)
 
 
 def from_blocked(a: jnp.ndarray, config: RenderConfig) -> jnp.ndarray:
     """Inverse of to_blocked on [N, C] data -> [H, W, C]."""
-    h, w = config.height, config.width
+    h, w, bh = config.height, config.width, _block_h()
     c = a.shape[-1]
     return jnp.transpose(
-        a.reshape(h // BLOCK, w // BLOCK, BLOCK, BLOCK, c),
+        a.reshape(h // bh, w // BLOCK_W, bh, BLOCK_W, c),
         (0, 2, 1, 3, 4)).reshape(h, w, c)
+
+
+def padded_len(n: int) -> int:
+    return ((n + TILE - 1) // TILE) * TILE
 
 
 class TraceAux(NamedTuple):
@@ -113,7 +106,8 @@ class TraceAux(NamedTuple):
     jitter_x: jnp.ndarray  # f32 camera subpixel jitter
     jitter_y: jnp.ndarray
 
-# Packed triangle-constant rows ([NROWS, T] table, SMEM).
+
+# Packed triangle-constant rows ([NROWS, T] table).
 ROW_NX, ROW_NY, ROW_NZ, ROW_C0 = 0, 1, 2, 3
 ROW_S1X, ROW_S1Y, ROW_S1Z, ROW_C1 = 4, 5, 6, 7
 ROW_S2X, ROW_S2Y, ROW_S2Z, ROW_C2 = 8, 9, 10, 11
@@ -121,16 +115,14 @@ ROW_DR, ROW_DG, ROW_DB, ROW_ISEM = 12, 13, 14, 15
 ROW_ER, ROW_EG, ROW_EB = 16, 17, 18
 NROWS = 19
 
-# Sphere-constant rows ([SROWS, S] table, SMEM): center xyz, radius,
-# diffuse rgb, is_emissive, emissive rgb.
+# Sphere-constant rows ([SROWS, S] table): center xyz, radius, diffuse rgb,
+# is_emissive, emissive rgb.
 SROWS = 11
 
-# Attribute-table rows ([NATTR, num_tris + num_spheres] VMEM table): shading
-# attributes of every primitive, fetched once per bounce by a one-hot MXU
-# matmul over the winning primitive index instead of being carried through
-# the closest-hit select chain (10 fewer where-selects per primitive per
-# ray). Rows: normal xyz (zeros for spheres), diffuse rgb, emissive rgb,
-# is_emissive, sphere-center xyz (zeros for triangles).
+# Attribute-table rows ([NATTR, num_tris + num_spheres]): shading
+# attributes of every primitive, gathered once per bounce for the winning
+# primitive. Rows: normal xyz (zeros for spheres), diffuse rgb, emissive
+# rgb, is_emissive, sphere-center xyz (zeros for triangles).
 NATTR = 13
 
 
@@ -143,19 +135,37 @@ HALTON_INDEX_BITS = 21
 
 
 def _halton_tile(i: jnp.ndarray, d: int) -> jnp.ndarray:
-    """Halton radical inverse on an index tile; fixed digit-count loop
-    (sampling.metal:107-122). Dense [RAY_SUB, 128] work.
+    """Halton radical inverse of dimension ``d`` on an index array; fixed
+    digit count (sampling.metal:107-122)."""
+    b = smp.PRIMES[d]
+    return _radical_inverse(i, _F32(b), _F32(1.0 / b), _halton_digits(b))
+
+
+def _halton_digits(b: int) -> int:
+    return int(math.ceil(HALTON_INDEX_BITS / math.log2(b)))
+
+
+def halton_bounce_table(bounces: int) -> jnp.ndarray:
+    """[bounces * 4, 4] f32 rows (base, 1/base, digit count, 0) of the
+    per-bounce Halton dimensions 2 + 5 * bounce + k, k = 0..3 (NEE u-pair,
+    cosine u-pair), for kernels that loop over bounces at run time. The
+    values equal _halton_tile's constants, so the digits are identical."""
+    rows = []
+    for bounce in range(bounces):
+        for k in range(4):
+            b = smp.PRIMES[2 + bounce * 5 + k]
+            rows.append([b, 1.0 / b, _halton_digits(b), 0.0])
+    return jnp.asarray(np.asarray(rows, np.float32))
+
+
+def _radical_inverse(i, bf, inv_b, digits):
+    """Radical inverse of ``i`` in base ``bf`` (with ``inv_b`` = 1/b in
+    f32) over ``digits`` digits; ``bf``/``inv_b``/``digits`` may be traced.
 
     Digit extraction runs in f32 instead of u32 div/mod: indices are < 2^21
     so they are exact in f32, q0 = floor(i * (1/b)) is off by at most 1 from
     rounding, and one correction step recovers the exact (quotient, digit)
-    pair — bit-identical to the oracle's integer path at a fraction of the
-    cost (TPU integer division is emulated; every op here is a single-cycle
-    VPU f32 op). Unrolled: the digit counts are small and static."""
-    b = smp.PRIMES[d]
-    digits = int(math.ceil(HALTON_INDEX_BITS / math.log2(b)))
-    inv_b = _F32(1.0 / b)
-    bf = _F32(b)
+    pair — the oracle's integer digits."""
 
     def body(_, carry):
         f, r, i_f = carry
@@ -168,28 +178,25 @@ def _halton_tile(i: jnp.ndarray, d: int) -> jnp.ndarray:
         q = jnp.where(too_low, q + 1.0, jnp.where(too_high, q - 1.0, q))
         digit = jnp.where(too_low, digit - bf,
                           jnp.where(too_high, digit + bf, digit))
-        r = r + f * digit
-        return f, r, q
+        return f, r + f * digit, q
 
     r0 = jnp.zeros(i.shape, _F32)
-    f0 = r0 + 1.0
     i_f = i.astype(_I32).astype(_F32)  # < 2^21: exact
-    _, r, _ = jax.lax.fori_loop(0, digits, body, (f0, r0, i_f), unroll=True)
+    _, r, _ = jax.lax.fori_loop(0, digits, body, (r0 + 1.0, r0, i_f))
     return r
 
 
 def _normalize3(x, y, z):
     # 1e-12 floor, matching sampling.normalize: rsqrt's VJP overflows f32
-    # below ~1e-24 (inf, then 0 * inf = NaN through in-kernel vjp on
-    # masked lanes — seen on real TPUs in the MIS backward).
+    # below ~1e-24.
     inv = jax.lax.rsqrt(jnp.maximum(x * x + y * y + z * z, 1e-12))
     return x * inv, y * inv, z * inv
 
 
 def _f32_divmod(x, m: int):
-    """Exact (quotient, remainder) of a small-integer-valued f32 tile by a
-    static int: floor-divide with one rounding-correction step (same trick
-    as _halton_tile — f32 ops beat emulated integer div on the VPU)."""
+    """Exact (quotient, remainder) of a small-integer-valued f32 array by a
+    static int: floor-divide with one rounding-correction step (the same
+    trick as _halton_tile)."""
     mf = _F32(m)
     q = jnp.floor(x * _F32(1.0 / m))
     r = x - q * mf
@@ -198,6 +205,22 @@ def _f32_divmod(x, m: int):
     q = jnp.where(too_low, q + 1.0, jnp.where(too_high, q - 1.0, q))
     r = jnp.where(too_low, r - mf, jnp.where(too_high, r + mf, r))
     return q, r
+
+
+def camera_jitter(ih: jnp.ndarray, config: RenderConfig):
+    """Camera subpixel jitter for Halton index ``ih`` (Halton dims 0/1,
+    or the stratified grid over spp cells — sampling.stratified2)."""
+    jx = _halton_tile(ih, 0)
+    jy = _halton_tile(ih, 1)
+    if config.sampler == "stratified":
+        k = int(round(math.sqrt(config.spp)))
+        ihf = ih.astype(_I32).astype(_F32)
+        _, cell = _f32_divmod(ihf, config.spp)
+        cy, cx = _f32_divmod(cell, k)
+        inv_k = _F32(1.0 / k)
+        jx = (cx + jx) * inv_k
+        jy = (cy + jy) * inv_k
+    return jx, jy
 
 
 def _safe_inv(d):
@@ -211,13 +234,13 @@ def _safe_inv(d):
 
 
 def _slab_interval(aabb6, ox, oy, oz, ivx, ivy, ivz):
-    """Ray/AABB slab test on a ray tile against one group's bounds (6 SMEM
-    scalars: lo xyz, hi xyz). Returns (tmin, tmax) of the box interval,
-    clamped below at 0. The group AABBs are padded host-side (GROUP_AABB_PAD
-    + relative margin) so FP differences between this arithmetic and the
-    in-group plane tests can never reject a group containing a true hit —
-    the cull is conservative by construction and decisions are bit-identical
-    to the uncculled loop (asserted in tests/test_grouped.py)."""
+    """Ray/AABB slab test against one box (6 scalars: lo xyz, hi xyz).
+    Returns (tmin, tmax) of the box interval, clamped below at 0. The boxes
+    are padded host-side (GROUP_AABB_PAD + relative margin) so FP
+    differences between this arithmetic and the in-group plane tests can
+    never reject a group containing a true hit — the cull is conservative
+    and decisions are bit-identical to the unculled loop (asserted in
+    tests/test_grouped.py)."""
     t0x = (aabb6[0] - ox) * ivx
     t1x = (aabb6[3] - ox) * ivx
     t0y = (aabb6[1] - oy) * ivy
@@ -237,119 +260,163 @@ def _slab_interval(aabb6, ox, oy, oz, ivx, ivy, ivz):
 # the relative+absolute slack on the per-ray far limit. The slab arithmetic
 # differs from the triangle plane test by a few ulps; these margins are ~1000x
 # that, so the cull can only ever ACCEPT extra groups (wasted work), never
-# reject a group whose triangle would have won — conservatism is what keeps
-# grouped-with-AABB decisions identical to the brute-force loop.
+# reject a group whose triangle would have won.
 GROUP_AABB_PAD = 1e-3
 T_FAR_SLACK = 1e-3
 
 
-def _sample_chunk_for(config: RenderConfig, records_only: bool,
-                      grouped_prims: int = 0) -> int:
-    """Samples per grid step for record-emitting runs: whole-spp when the
-    staged record blocks fit comfortably in VMEM, else the largest divisor
-    of spp whose block set stays <= ~3 MB (Pallas double-buffers output
-    blocks across the sample grid dim — this is what lets BASELINE config
-    5's 1024^2 x 256 spp record stream exist without a >12 MB VMEM block).
-
-    ``grouped_prims``: padded primitive count of a GROUPED-tier scene —
-    its VMEM-resident tables (transposed fetch table in the trace kernel;
-    table + dtab output + scratch in the backward, ~200 B/prim total) eat
-    into the block budget, so the chunk shrinks with scene size (measured:
-    12.8k tris overflowed the 16 MB scoped limit by 0.5 MB at the
-    ungrouped chunk choice). MUST be passed identically by the record
-    EMITTER and the record CONSUMER — the record-plane block layout is
-    this chunk size."""
-    per_sample = config.bounces * RAY_SUB * LANES * 4      # records (i32)
-    if not records_only:
-        per_sample = per_sample * 5 + 2 * RAY_SUB * LANES * 4  # + uv/jitter
-    reserve = 200 * grouped_prims
-    if config.spp * per_sample <= (6 << 20) - reserve:
-        return config.spp
-    c = max(1, min(config.spp,
-                   max((1 << 20), (3 << 20) - reserve) // per_sample))
-    while config.spp % c:
-        c -= 1
-    return max(c, 1)
+def _tri_hit(row, ox, oy, oz, dx, dy, dz):
+    """Plane-intersection t and barycentric (u, v) of one triangle
+    (12 scalars). Raw divide: rays with |den| < 1e-12 produce Inf/NaN,
+    every comparison on them is false, and the caller keeps ``ok`` in the
+    accept mask — decisions and winning-lane t values match the oracle's
+    selected-divide form."""
+    (nx, ny, nz, c0, s1x, s1y, s1z, c1, s2x, s2y, s2z, c2) = row
+    den = dx * nx + dy * ny + dz * nz
+    num = c0 - (ox * nx + oy * ny + oz * nz)
+    ok = jnp.abs(den) >= 1e-12
+    tt = num / den
+    u = (ox * s1x + oy * s1y + oz * s1z) \
+        + tt * (dx * s1x + dy * s1y + dz * s1z) - c1
+    v = (ox * s2x + oy * s2y + oz * s2z) \
+        + tt * (dx * s2x + dy * s2y + dz * s2z) - c2
+    inside = ok & (jnp.minimum(u, v) >= 0.0) & (u + v <= 1.0)
+    return tt, inside
 
 
-def _draws_kernel(config: RenderConfig, s_chunk: int,
-                  offsets_ref, nee0_ref, nee1_ref, cos0_ref, cos1_ref,
-                  jx_ref, jy_ref):
-    """Random-draw pregeneration: the trace kernel's Halton evaluations
-    (camera jitter + per-bounce NEE/cosine u-pairs), extracted into their
-    own pass. The draws are a pure function of (pixel offset, sample index)
-    — STEP-INVARIANT across a training/bench loop — so emitting them once
-    and letting the trace kernel read planes turns ~14 radical-inverse
-    tiles per sample of per-step VPU work into a one-time cost that XLA
-    hoists out of `lax.scan`/training loops (the same amortization the MIS
-    kernel gets from its host-precomputed SMEM sample tables). Bit-identical
-    values: same f32-digit Halton as the in-kernel path."""
-    off = offsets_ref[...]
-    j_chunk = pl.program_id(1)
+def _sphere_roots(sph, ox, oy, oz, dx, dy, dz):
+    """Quadratic ray/sphere roots (shaders_old.metal:108-136; same op
+    order as intersect._sphere_candidates for oracle parity)."""
+    scx, scy, scz, rad = sph[:4]
+    ocx, ocy, ocz = ox - scx, oy - scy, oz - scz
+    a = dx * dx + dy * dy + dz * dz
+    b = 2.0 * (ocx * dx + ocy * dy + ocz * dz)
+    c = (ocx * ocx + ocy * ocy + ocz * ocz) - rad * rad
+    disc = b * b - 4.0 * a * c
+    pos = disc > 0.0
+    sq = jnp.sqrt(jnp.where(pos, disc, 1.0))
+    t1 = (-b - sq) / (2.0 * a)
+    t2 = (-b + sq) / (2.0 * a)
+    return pos, t1, t2
 
-    def one_sample(n_i32, carry):
-        ih = off + (j_chunk * s_chunk + n_i32).astype(_U32)
-        jx = _halton_tile(ih, 0)
-        jy = _halton_tile(ih, 1)
-        if config.sampler == "stratified":
-            k = int(round(math.sqrt(config.spp)))
-            ihf = ih.astype(_I32).astype(_F32)
-            _, cell = _f32_divmod(ihf, config.spp)
-            cy, cx = _f32_divmod(cell, k)
-            inv_k = _F32(1.0 / k)
-            jx = (cx + jx) * inv_k
-            jy = (cy + jy) * inv_k
-        js = pl.ds(n_i32 * RAY_SUB, RAY_SUB)
-        jx_ref[js, :] = jx
-        jy_ref[js, :] = jy
-        for bounce in range(config.bounces):
-            bs = pl.ds((n_i32 * config.bounces + bounce) * RAY_SUB, RAY_SUB)
-            nee0_ref[bs, :] = _halton_tile(ih, 2 + bounce * 5 + 0)
-            nee1_ref[bs, :] = _halton_tile(ih, 2 + bounce * 5 + 1)
-            cos0_ref[bs, :] = _halton_tile(ih, 2 + bounce * 5 + 2)
-            cos1_ref[bs, :] = _halton_tile(ih, 2 + bounce * 5 + 3)
-        return carry
 
-    jax.lax.fori_loop(0, s_chunk, one_sample, 0)
+def _group_reaches(aabb_ref, g, ox, oy, oz, ivx, ivy, ivz, t_far, live):
+    """Block-uniform AABB skip: does any live ray of the program reach
+    group ``g``'s box before ``t_far``?"""
+    tmin, tmax = _slab_interval([aabb_ref[r, g] for r in range(6)],
+                                ox, oy, oz, ivx, ivy, ivz)
+    reach = (tmin <= jnp.minimum(tmax, t_far)) & live
+    return jnp.max(jnp.where(reach, 1.0, 0.0)) > 0.5
+
+
+def closest_tris(tri_ref, aabb_ref, n_groups: int, ox, oy, oz, dx, dy, dz,
+                 t_best, prim_f):
+    """Closest triangle hit: a fori_loop over groups of GROUP triangles,
+    skipping a group when no ray of the program reaches its AABB before
+    the ray's current best t, and a rolled loop over the group's
+    triangles (constants read as dynamically indexed scalars). Host-side
+    Morton packing keeps the boxes tight; the skip is conservative (padded
+    boxes), so decisions equal the brute-force loop's."""
+    ivx, ivy, ivz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
+    live = jnp.full(ox.shape, True)
+
+    def tri_body(idx, carry):
+        t_b, p_f = carry
+        tt, inside = _tri_hit([tri_ref[r, idx] for r in range(12)],
+                              ox, oy, oz, dx, dy, dz)
+        closer = inside & (tt > RAY_TMIN) & (tt < RAY_TMAX) & (tt < t_b)
+        return (jnp.where(closer, tt, t_b),
+                jnp.where(closer, idx.astype(_F32), p_f))
+
+    def group_body(g, carry):
+        t_far = jnp.minimum(carry[0] * (1.0 + T_FAR_SLACK) + T_FAR_SLACK,
+                            RAY_TMAX)
+        return jax.lax.cond(
+            _group_reaches(aabb_ref, g, ox, oy, oz, ivx, ivy, ivz, t_far,
+                           live),
+            lambda c: jax.lax.fori_loop(g * GROUP, g * GROUP + GROUP,
+                                        tri_body, c),
+            lambda c: c, carry)
+
+    return jax.lax.fori_loop(0, n_groups, group_body, (t_best, prim_f))
+
+
+def occluded_tris(tri_ref, aabb_ref, n_groups: int, ox, oy, oz, dx, dy, dz,
+                  t_lo, t_max):
+    """Shadow any-hit over a (dense, occluder-culled) triangle table: a
+    group is skipped when no still-unoccluded ray's [0, t_max] segment
+    overlaps its box (conservative, so occlusion decisions are those of
+    the full loop). A hit counts for t_lo < t < t_max. Returns bools."""
+    ivx, ivy, ivz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
+    t_seg = t_max * (1.0 + T_FAR_SLACK) + T_FAR_SLACK
+
+    def tri_body(idx, occ):
+        tt, inside = _tri_hit([tri_ref[r, idx] for r in range(12)],
+                              ox, oy, oz, dx, dy, dz)
+        return occ | (inside & (tt > t_lo) & (tt < t_max))
+
+    def group_body(g, occ):
+        return jax.lax.cond(
+            _group_reaches(aabb_ref, g, ox, oy, oz, ivx, ivy, ivz, t_seg,
+                           ~occ),
+            lambda o: jax.lax.fori_loop(g * GROUP, g * GROUP + GROUP,
+                                        tri_body, o),
+            lambda o: o, occ)
+
+    return jax.lax.fori_loop(0, n_groups, group_body,
+                             jnp.zeros(ox.shape, bool))
+
+
+def spheres_closest(sph_ref, num_tris: int, num_spheres: int,
+                    ox, oy, oz, dx, dy, dz, t_best, prim_f):
+    """Analytic spheres after the triangles (ties keep the triangle, like
+    the oracle's first-min argmin over [tris..., spheres...])."""
+    for s_idx in range(num_spheres):
+        spos, t1, t2 = _sphere_roots([sph_ref[r, s_idx] for r in range(4)],
+                                     ox, oy, oz, dx, dy, dz)
+        t1_ok = (t1 > RAY_TMIN) & (t1 < RAY_TMAX)
+        t2_ok = (t2 > RAY_TMIN) & (t2 < RAY_TMAX)
+        tt = jnp.where(t1_ok, t1, t2)
+        closer = spos & (t1_ok | t2_ok) & (tt < t_best)
+        t_best = jnp.where(closer, tt, t_best)
+        prim_f = jnp.where(closer, _F32(num_tris + s_idx), prim_f)
+    return t_best, prim_f
+
+
+def spheres_occluded(sph_ref, num_spheres: int, occ, ox, oy, oz, dx, dy, dz,
+                     t_lo, t_max):
+    for s_idx in range(num_spheres):
+        spos, t1, t2 = _sphere_roots([sph_ref[r, s_idx] for r in range(4)],
+                                     ox, oy, oz, dx, dy, dz)
+        t1_ok = (t1 > t_lo) & (t1 < t_max)
+        t2_ok = (t2 > t_lo) & (t2 < t_max)
+        occ = occ | (spos & (t1_ok | t2_ok))
+    return occ
 
 
 def _path_kernel(config: RenderConfig, n_pixels: int, num_tris: int,
                  num_spheres: int, emit_records: bool, records_only: bool,
-                 s_chunk: int, occluders, grouped: bool, n_shadow: int,
-                 blocked: bool, share_shadow: bool,
+                 n_groups: int, n_groups_sh: int, blocked: bool,
                  offsets_ref, rid_base_ref, cam_ref, light_ref, tri_ref,
-                 sph_ref, atab_ref, *rest):
-    """One [RAY_SUB, 128] tile of rays: full spp x bounces path trace.
+                 sph_ref, atab_ref, aabb_ref, shadow_ref, sh_aabb_ref,
+                 hal_ref, *rest):
+    """One program: TILE rays through the full spp x bounces path trace.
 
     With ``emit_records``, also writes one int32 visibility record per
     (sample, bounce, ray): code = (winning prim + 1) + OCC_BIT * occluded
     (0 = miss; sphere s records as num_tris + s + 1). The records replay the
-    kernel's discrete decisions in a cheap differentiable jnp shading pass
-    (ops/decoupled.py) — the fwd+bwd path. In this mode (unless
-    ``records_only``) the random draws arrive as precomputed input planes
-    from ``_draws_kernel`` instead of being radical-inversed in-loop.
+    kernel's discrete decisions in the backward (ops/pallas_shade.py). In
+    this mode (unless ``records_only``) the random draws arrive as
+    pregenerated input planes (``pregen_draws``) instead of being
+    radical-inversed in the loop.
 
-    ``grouped`` switches the primitive loops to dynamic GROUPED traversal
-    (see STATIC_UNROLL_MAX): tri_ref is then a zero-padded [12, P_pad] SMEM
-    geometry table read with dynamic scalar indices inside a fori_loop over
-    GROUP-sized chunks, atab_ref a TRANSPOSED [P_pad128, NATTR] VMEM fetch
-    table contracted per 128-primitive block, and an extra ``shadow_ref``
-    SMEM table (occluder-culled triangles packed dense, ``n_shadow`` wide)
-    precedes the other rest-args. Padding columns are all-zero, so their
-    plane tests fail the |den| guard and can never win."""
-    if grouped:
-        if share_shadow:
-            # One geometry/AABB table set for both loops (SMEM budget —
-            # see _render_pallas_impl's share_shadow note).
-            aabb_ref, sup_ref = rest[:2]
-            rest = rest[2:]
-            shadow_ref, sh_aabb_ref, sh_sup_ref = tri_ref, aabb_ref, sup_ref
-        else:
-            (shadow_ref, aabb_ref, sup_ref,
-             sh_aabb_ref, sh_sup_ref) = rest[:5]
-            rest = rest[5:]
-    else:
-        shadow_ref = aabb_ref = sup_ref = sh_aabb_ref = sh_sup_ref = None
+    ``tri_ref`` is the zero-padded [12, GROUP * n_groups] geometry table
+    with its group AABBs ``aabb_ref``; ``shadow_ref``/``sh_aabb_ref`` the
+    same for the shadow loop (occluder-culled triangles packed dense).
+    Padding columns are all-zero, so their plane tests fail the |den| guard
+    and can never win or occlude. ``hal_ref`` holds the per-bounce Halton
+    bases (``halton_bounce_table``): the bounce loop runs at run time, so
+    the kernel's code does not grow with the bounce count."""
     reads_draws = emit_records and not records_only
     if reads_draws:
         (nee0_ref, nee1_ref, cos0_ref, cos1_ref, jx_ref, jy_ref,
@@ -359,382 +426,95 @@ def _path_kernel(config: RenderConfig, n_pixels: int, num_tris: int,
         rec_out_ref = rest[3] if emit_records else None
     W = config.width
     H = config.height
+    B = config.bounces
     he = _F32(config.area_light_half_extent)
 
     pid = pl.program_id(0)
-    sub = jax.lax.broadcasted_iota(_I32, (RAY_SUB, LANES), 0)
-    lanei = jax.lax.broadcasted_iota(_I32, (RAY_SUB, LANES), 1)
-    # Global pixel id: rid_base is the shard's first pixel (0 single-chip;
+    lane = jax.lax.broadcasted_iota(_I32, (TILE,), 0)
+    # Global pixel id: rid_base is the shard's first pixel (0 single-device;
     # axis_index * shard_size under shard_map) so sharded rendering keeps
     # every per-pixel quantity a pure function of the global pixel.
-    rid = rid_base_ref[0, 0] + pid * TILE + sub * LANES + lanei
+    rid = rid_base_ref[0, 0] + pid * TILE + lane
     if blocked:
-        # SQUARE-TILE pixel mapping (grouped tier): each grid step owns one
-        # 64x64 pixel block instead of an 8-row full-width strip, so the
-        # tile's camera frustum / shadow cone is compact and the AABB cull's
-        # tile-wide any() rejects far more boxes. The mapping is a pure
-        # (reshape, transpose) permutation applied to the offsets input and
-        # the hdr/record outputs host-side; per-pixel math is unchanged, so
-        # images equal the linear mapping's exactly.
-        nbx = W // BLOCK
-        blk_s = rid_base_ref[0, 0] // TILE + pid        # scalar block id
-        off = sub * LANES + lanei
-        pxi = (blk_s % nbx) * BLOCK + off % BLOCK
-        pyi = (blk_s // nbx) * BLOCK + off // BLOCK
-        px = pxi.astype(_F32)
-        py = pyi.astype(_F32)
+        # Pixel-tile mapping: each program owns a compact
+        # BLOCK_W x (TILE / BLOCK_W) pixel block, so its frustum / shadow
+        # cone is compact and the block-uniform AABB skip rejects more
+        # boxes. A pure permutation of the offsets input and the outputs
+        # host-side; per-pixel math is unchanged.
+        nbx = W // BLOCK_W
+        blk = rid_base_ref[0, 0] // TILE + pid
+        px = ((blk % nbx) * BLOCK_W + lane % BLOCK_W).astype(_F32)
+        py = ((blk // nbx) * _block_h() + lane // BLOCK_W).astype(_F32)
     else:
         px = (rid % W).astype(_F32)
         py = (rid // W).astype(_F32)
     in_image = rid < n_pixels
 
-    off = offsets_ref[...]  # [RAY_SUB, 128] uint32
+    off = offsets_ref[...]  # [TILE] uint32
 
     cam = [cam_ref[0, k] for k in range(12)]
     pos, uhw, vhh, wv = cam[0:3], cam[3:6], cam[6:9], cam[9:12]
     lcx, lcy, lcz = light_ref[0, 0], light_ref[0, 1], light_ref[0, 2]
     lr, lg, lb = light_ref[0, 3], light_ref[0, 4], light_ref[0, 5]
 
-    # Hoist all triangle/sphere scalars out of the sample loop
-    # (loop-invariant). Only the 12 geometry rows are consumed in-kernel;
-    # shading attributes come from the one-hot fetch table. (Static mode
-    # only — grouped mode reads them with dynamic indices per group.)
-    tris = []
-    if not grouped:
-        for t in range(num_tris):
-            tris.append(tuple(tri_ref[r, t] for r in range(12)))
-    sphs = []
-    for s_i in range(num_spheres):
-        sphs.append(tuple(sph_ref[r, s_i] for r in range(SROWS)))
-
     n_prims = num_tris + num_spheres
-    if not grouped:
-        p_iota = jax.lax.broadcasted_iota(_I32, (n_prims, TILE), 0)
-        # Exact one-pass attribute fetch (same bf16 chunk-split as the
-        # backward kernel, pallas_shade.py): three bf16-representable chunks
-        # stacked along the output row dim, one DEFAULT matmul, fold
-        # reconstructs the f32 table exactly — 1/6 the MXU passes of the
-        # previous HIGHEST fetch.
-        atabv = atab_ref[...]
-        a0 = atabv.astype(jnp.bfloat16).astype(_F32)
-        ar = atabv - a0
-        a1 = ar.astype(jnp.bfloat16).astype(_F32)
-        atab9 = jnp.concatenate([a0, a1, ar - a1], axis=0)  # [3*NATTR, P]
-    else:
-        pb_iota = jax.lax.broadcasted_iota(_I32, (PBLK, TILE), 0)
 
-    def fetch_attrs(prim_f, hit):
-        """One-hot MXU attribute fetch of the winning primitive's shading
-        rows -> [NATTR, RAY_SUB, LANES]. Miss lanes clamp to primitive 0;
-        every consumer is gated by ``hit``-derived masks downstream.
-
-        Grouped mode contracts per 128-primitive block against the
-        TRANSPOSED table (a full [P, TILE] one-hot at 1k+ prims would be
-        16+ MB — past VMEM); each block gets the same exact bf16
-        chunk-split, folded per block, and each primitive matches exactly
-        one block so the block-sum is exact."""
-        pc = jnp.clip(prim_f, 0.0, _F32(n_prims - 1)).astype(_I32)
-        if not grouped:
-            onehot = (p_iota == pc.reshape(1, TILE)).astype(_F32)
-            at9 = jax.lax.dot_general(
-                atab9, onehot, (((1,), (0,)), ((), ())),
-                preferred_element_type=_F32,
-                precision=jax.lax.Precision.DEFAULT)  # [3*NATTR, TILE]
-            at = at9[:NATTR] + at9[NATTR:2 * NATTR] + at9[2 * NATTR:]
-            return at.reshape(NATTR, RAY_SUB, LANES)
-        # BLOCK-RANGE fetch: only 128-primitive blocks between the tile's
-        # min and max WINNING indices are contracted (a fori_loop with
-        # dynamic bounds + dynamic VMEM slices). Coherent tiles touch a few
-        # blocks; without this the per-block loop is itself O(P) and would
-        # dominate once the AABB cull removes the intersection work. Miss
-        # lanes are excluded from the range — they then fetch ZEROS instead
-        # of primitive 0's attributes, which only changes values on lanes
-        # every consumer already gates by ``hit`` (hdr/records identical on
-        # live lanes; asserted against the oracle in tests/test_grouped.py).
-        pcf = pc.reshape(1, TILE)
-        pci = pc
-        pmin = jnp.min(jnp.where(hit, pci, n_prims - 1))
-        pmax = jnp.max(jnp.where(hit, pci, 0))
-        bk_lo = pmin // PBLK
-        bk_hi = pmax // PBLK
-
-        def blk_body(bk, at_acc):
-            off = pl.multiple_of(bk * PBLK, PBLK)
-            oh = (pb_iota == (pcf - bk * PBLK)).astype(_F32)  # [PBLK, TILE]
-            blk = atab_ref[pl.ds(off, PBLK), :]               # [PBLK, NATTR]
-            b0 = blk.astype(jnp.bfloat16).astype(_F32)
-            br = blk - b0
-            b1 = br.astype(jnp.bfloat16).astype(_F32)
-            blk9 = jnp.concatenate([b0, b1, br - b1], axis=1)  # [PBLK, 3*NA]
-            at9 = jax.lax.dot_general(
-                blk9, oh, (((0,), (0,)), ((), ())),
-                preferred_element_type=_F32,
-                precision=jax.lax.Precision.DEFAULT)  # [3*NATTR, TILE]
-            part = at9[:NATTR] + at9[NATTR:2 * NATTR] + at9[2 * NATTR:]
-            return at_acc + part
-
-        at_acc = jax.lax.fori_loop(bk_lo, bk_hi + 1, blk_body,
-                                   jnp.zeros((NATTR, TILE), _F32))
-        return at_acc.reshape(NATTR, RAY_SUB, LANES)
-
-    def sphere_roots(sph, ox, oy, oz, dx, dy, dz):
-        """Quadratic ray/sphere roots (shaders_old.metal:108-136; same op
-        order as intersect._sphere_candidates for oracle parity)."""
-        scx, scy, scz, rad = sph[:4]
-        ocx, ocy, ocz = ox - scx, oy - scy, oz - scz
-        a = dx * dx + dy * dy + dz * dz
-        b = 2.0 * (ocx * dx + ocy * dy + ocz * dz)
-        c = (ocx * ocx + ocy * ocy + ocz * ocz) - rad * rad
-        disc = b * b - 4.0 * a * c
-        pos = disc > 0.0
-        sq = jnp.sqrt(jnp.where(pos, disc, 1.0))
-        t1 = (-b - sq) / (2.0 * a)
-        t2 = (-b + sq) / (2.0 * a)
-        return pos, t1, t2
-
-    def _tri_closest_step(row, prim_idx_f, ox, oy, oz, dx, dy, dz,
-                          t_best, prim_f):
-        """One triangle's closest-hit test + running-min carry update.
-        ``row``: the 12 geometry scalars; ``prim_idx_f``: the triangle's
-        index as an f32 scalar (static in unrolled mode, traced in grouped
-        mode — a splat either way)."""
-        (nx, ny, nz, c0, s1x, s1y, s1z, c1, s2x, s2y, s2z, c2) = row
-        den = dx * nx + dy * ny + dz * nz
-        num = c0 - (ox * nx + oy * ny + oz * nz)
-        ok = jnp.abs(den) >= 1e-12
-        # Raw divide: guarded lanes produce Inf/NaN, every comparison on
-        # them is false, and ``ok`` stays in the accept mask — decisions
-        # (and winning-lane t values) exactly match the oracle's
-        # selected-divide form at one fewer select per primitive.
-        tt = num / den
-        u = (ox * s1x + oy * s1y + oz * s1z) \
-            + tt * (dx * s1x + dy * s1y + dz * s1z) - c1
-        v = (ox * s2x + oy * s2y + oz * s2z) \
-            + tt * (dx * s2x + dy * s2y + dz * s2z) - c2
-        closer = (ok & (tt > RAY_TMIN) & (tt < RAY_TMAX)
-                  & (jnp.minimum(u, v) >= 0.0) & (u + v <= 1.0)
-                  & (tt < t_best))
-        t_best = jnp.where(closer, tt, t_best)
-        prim_f = jnp.where(closer, prim_idx_f, prim_f)
-        return t_best, prim_f
+    def halton(ih, row):
+        return _radical_inverse(ih, hal_ref[row, 0], hal_ref[row, 1],
+                                hal_ref[row, 2].astype(_I32))
 
     def closest(ox, oy, oz, dx, dy, dz):
-        """Running-min closest hit over the triangle loop (static unroll or
-        grouped fori_loop). Returns
-        (hit, t, prim_f, normal xyz, diffuse rgb, emissive rgb, is_em).
-
-        Only (t_best, prim_f) are carried through the primitive loop; the 10
-        shading-attribute planes are fetched once at the end by the one-hot
-        MXU fetch (``fetch_attrs``) — ~10 fewer VPU selects per primitive
-        per ray than carrying the attributes through the chain."""
-        t_best = jnp.full((RAY_SUB, LANES), BIG, _F32)
+        """Running-min closest hit. Returns (hit, t, prim_f, normal xyz,
+        diffuse rgb, emissive rgb, is_em)."""
+        t_best = jnp.full((TILE,), BIG, _F32)
         prim_f = t_best * 0.0 - 1.0  # winning primitive index, -1 = miss
-        if not grouped:
-            for t_idx, tri in enumerate(tris):
-                t_best, prim_f = _tri_closest_step(
-                    tri, _F32(t_idx), ox, oy, oz, dx, dy, dz, t_best, prim_f)
-        else:
-            # TWO-LEVEL spatial rejection (the TPU-native analog of the
-            # reference's driver BVH, computeShader.swift:45-97): a
-            # fori_loop over SUPER-group AABBs (128 tris each) skips whole
-            # regions per lax.cond; accepted supers test their 8 group
-            # AABBs (16 tris each); accepted groups run the dynamically
-            # SMEM-indexed triangle unroll. The t_best bound tightens as
-            # the sweep runs, so later boxes reject more — per-ray cost
-            # tracks INTERSECTED geometry, not total primitives. Host-side
-            # Morton-coherent packing keeps the boxes tight; the cull is
-            # conservative (padded boxes), so decisions are bit-identical
-            # to the brute-force loop (tests/test_grouped.py).
-            ivx, ivy, ivz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
-            n_super = sup_ref.shape[1]
-
-            def tri_group(g, carry):
-                t_b, p_f = carry
-                aabb6 = [aabb_ref[r, g] for r in range(6)]
-                tmin, tmax = _slab_interval(aabb6, ox, oy, oz, ivx, ivy, ivz)
-                t_far = jnp.minimum(t_b * (1.0 + T_FAR_SLACK) + T_FAR_SLACK,
-                                    RAY_TMAX)
-                reach = tmin <= jnp.minimum(tmax, t_far)
-                any_hit = jnp.max(jnp.where(reach, 1.0, 0.0)) > 0.5
-
-                def run(carry):
-                    t_b, p_f = carry
-                    base = g * GROUP
-                    for k in range(GROUP):
-                        idx = base + k
-                        row = tuple(tri_ref[r, idx] for r in range(12))
-                        t_b, p_f = _tri_closest_step(
-                            row, idx.astype(_F32), ox, oy, oz, dx, dy, dz,
-                            t_b, p_f)
-                    return t_b, p_f
-
-                return jax.lax.cond(any_hit, run, lambda c: c, (t_b, p_f))
-
-            def super_body(sg, carry):
-                t_b, p_f = carry
-                s6 = [sup_ref[r, sg] for r in range(6)]
-                tmin, tmax = _slab_interval(s6, ox, oy, oz, ivx, ivy, ivz)
-                t_far = jnp.minimum(t_b * (1.0 + T_FAR_SLACK) + T_FAR_SLACK,
-                                    RAY_TMAX)
-                reach = tmin <= jnp.minimum(tmax, t_far)
-                any_hit = jnp.max(jnp.where(reach, 1.0, 0.0)) > 0.5
-
-                def run(carry):
-                    for k in range(SUPER):
-                        carry = tri_group(sg * SUPER + k, carry)
-                    return carry
-
-                return jax.lax.cond(any_hit, run, lambda c: c, (t_b, p_f))
-
-            t_best, prim_f = jax.lax.fori_loop(
-                0, n_super, super_body, (t_best, prim_f))
-        # Analytic spheres after triangles (ties keep the triangle, like the
-        # oracle's first-min argmin over [tris..., spheres...]).
-        for s_idx, sph in enumerate(sphs):
-            pos, t1, t2 = sphere_roots(sph, ox, oy, oz, dx, dy, dz)
-            t1_ok = (t1 > RAY_TMIN) & (t1 < RAY_TMAX)
-            t2_ok = (t2 > RAY_TMIN) & (t2 < RAY_TMAX)
-            tt = jnp.where(t1_ok, t1, t2)
-            closer = pos & (t1_ok | t2_ok) & (tt < t_best)
-            t_best = jnp.where(closer, tt, t_best)
-            prim_f = jnp.where(closer, _F32(num_tris + s_idx), prim_f)
+        t_best, prim_f = closest_tris(tri_ref, aabb_ref, n_groups,
+                                      ox, oy, oz, dx, dy, dz, t_best, prim_f)
+        t_best, prim_f = spheres_closest(sph_ref, num_tris, num_spheres,
+                                         ox, oy, oz, dx, dy, dz,
+                                         t_best, prim_f)
         hit = t_best < BIG * 0.5
-        at = fetch_attrs(prim_f, hit)
+        # Miss lanes gather primitive 0; every consumer gates by ``hit``.
+        pc = jnp.clip(prim_f, 0.0, _F32(n_prims - 1)).astype(_I32)
+        at = [atab_ref[r, pc] for r in range(NATTR)]
         nhx, nhy, nhz = at[0], at[1], at[2]
-        dfr, dfg, dfb = at[3], at[4], at[5]
-        emr, emg, emb = at[6], at[7], at[8]
-        isem = at[9]
         if num_spheres:
             # Sphere normal: (hit point - center) normalized
             # (shaders_old.metal:122-123); select over the triangle normal
             # (zeros in the table's sphere columns).
             sphere_won = hit & (prim_f >= _F32(num_tris))
-            wcx, wcy, wcz = at[10], at[11], at[12]
             t_s = jnp.where(sphere_won, t_best, 0.0)
-            nvx = ox + dx * t_s - wcx
-            nvy = oy + dy * t_s - wcy
-            nvz = oz + dz * t_s - wcz
+            nvx = ox + dx * t_s - at[10]
+            nvy = oy + dy * t_s - at[11]
+            nvz = oz + dz * t_s - at[12]
             inv = jax.lax.rsqrt(jnp.maximum(
                 nvx * nvx + nvy * nvy + nvz * nvz, 1e-6))
             nhx = jnp.where(sphere_won, nvx * inv, nhx)
             nhy = jnp.where(sphere_won, nvy * inv, nhy)
             nhz = jnp.where(sphere_won, nvz * inv, nhz)
-        return (hit, t_best, prim_f, nhx, nhy, nhz, dfr, dfg, dfb,
-                emr, emg, emb, isem)
-
-    def _tri_shadow_step(row, ox, oy, oz, dx, dy, dz, t_max, occ):
-        """One triangle's any-hit test, OR'd into the running occlusion."""
-        nx, ny, nz, c0, s1x, s1y, s1z, c1, s2x, s2y, s2z, c2 = row
-        den = dx * nx + dy * ny + dz * nz
-        num = c0 - (ox * nx + oy * ny + oz * nz)
-        ok = jnp.abs(den) >= 1e-12
-        # Raw divide: guarded lanes produce Inf/NaN, every comparison on
-        # them is false, and ``ok`` stays in the accept mask — decisions
-        # (and winning-lane t values) exactly match the oracle's
-        # selected-divide form at one fewer select per primitive.
-        tt = num / den
-        u = (ox * s1x + oy * s1y + oz * s1z) \
-            + tt * (dx * s1x + dy * s1y + dz * s1z) - c1
-        v = (ox * s2x + oy * s2y + oz * s2z) \
-            + tt * (dx * s2x + dy * s2y + dz * s2z) - c2
-        return occ | (ok & (tt > 0.0) & (tt < t_max)
-                      & (jnp.minimum(u, v) >= 0.0) & (u + v <= 1.0))
+        return (hit, t_best, prim_f, nhx, nhy, nhz, at[3], at[4], at[5],
+                at[6], at[7], at[8], at[9])
 
     def occluded_q(ox, oy, oz, dx, dy, dz, t_max):
         """Shadow any-hit with per-ray t_max (raytrace.metal:79-85).
-        ``occluders`` statically culls triangles that provably cannot block
-        a surface->light segment (intersect.potential_occluders — e.g. the
-        convex-hull walls); decisions are bit-identical to the full loop.
-        Grouped mode iterates the dense host-packed shadow table (culled
-        triangles already dropped; padding columns fail the |den| guard)."""
-        occ = jnp.zeros((RAY_SUB, LANES), bool)
-        if not grouped:
-            shadow_tris = (tris if occluders is None else
-                           [t for i, t in enumerate(tris) if occluders[i]])
-            for tri in shadow_tris:
-                occ = _tri_shadow_step(tri[:12], ox, oy, oz, dx, dy, dz,
-                                       t_max, occ)
-        else:
-            ivx, ivy, ivz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
-            t_seg = t_max * (1.0 + T_FAR_SLACK) + T_FAR_SLACK
-            n_super = sh_sup_ref.shape[1]
-
-            # Two-level segment/AABB rejection + early-out (see the closest
-            # loop): a box is skipped when no STILL-UNOCCLUDED ray's
-            # [0, t_max] segment overlaps it — conservative, so occlusion
-            # decisions are identical. The running-OR carries as f32 0/1,
-            # not bool: Mosaic cannot legalize i1-vector loop carries.
-            def tri_group(g, occ_f):
-                aabb6 = [sh_aabb_ref[r, g] for r in range(6)]
-                tmin, tmax = _slab_interval(aabb6, ox, oy, oz, ivx, ivy, ivz)
-                reach = (tmin <= jnp.minimum(tmax, t_seg)) & (occ_f < 0.5)
-                any_hit = jnp.max(jnp.where(reach, 1.0, 0.0)) > 0.5
-
-                def run(occ_f):
-                    base = g * GROUP
-                    occ_c = occ_f > 0.5
-                    for k in range(GROUP):
-                        idx = base + k
-                        row = tuple(shadow_ref[r, idx] for r in range(12))
-                        occ_c = _tri_shadow_step(row, ox, oy, oz, dx, dy, dz,
-                                                 t_max, occ_c)
-                    return jnp.where(occ_c, 1.0, 0.0)
-
-                return jax.lax.cond(any_hit, run, lambda o: o, occ_f)
-
-            def super_body(sg, occ_f):
-                s6 = [sh_sup_ref[r, sg] for r in range(6)]
-                tmin, tmax = _slab_interval(s6, ox, oy, oz, ivx, ivy, ivz)
-                reach = (tmin <= jnp.minimum(tmax, t_seg)) & (occ_f < 0.5)
-                any_hit = jnp.max(jnp.where(reach, 1.0, 0.0)) > 0.5
-
-                def run(occ_f):
-                    for k in range(SUPER):
-                        occ_f = tri_group(sg * SUPER + k, occ_f)
-                    return occ_f
-
-                return jax.lax.cond(any_hit, run, lambda o: o, occ_f)
-
-            occ_f = jax.lax.fori_loop(0, n_super, super_body,
-                                      jnp.where(occ, 1.0, 0.0))
-            occ = occ_f > 0.5
-        for sph in sphs:
-            pos, t1, t2 = sphere_roots(sph, ox, oy, oz, dx, dy, dz)
-            t1_ok = (t1 > 0.0) & (t1 < t_max)
-            t2_ok = (t2 > 0.0) & (t2 < t_max)
-            occ = occ | (pos & (t1_ok | t2_ok))
-        return occ
-
-    # Record-emitting runs use a (tile, sample-chunk) grid; the global
-    # sample index is j * s_chunk + n so record slices stay within this
-    # step's block while the RNG stays a pure function of the global index.
-    j_chunk = pl.program_id(1) if emit_records else None
+        The shadow table holds only the triangles that can block a
+        surface->light segment (intersect.potential_occluders, when given);
+        decisions are bit-identical to the full loop."""
+        occ = occluded_tris(shadow_ref, sh_aabb_ref, n_groups_sh,
+                            ox, oy, oz, dx, dy, dz, 0.0, t_max)
+        return spheres_occluded(sph_ref, num_spheres, occ, ox, oy, oz,
+                                dx, dy, dz, 0.0, t_max)
 
     def one_sample(n_i32, carry):
         acc_r, acc_g, acc_b = carry
         if reads_draws:
-            js = pl.ds(n_i32 * RAY_SUB, RAY_SUB)
-            jx = jx_ref[js, :]
-            jy = jy_ref[js, :]
+            js = pl.ds(n_i32 * TILE, TILE)
+            jx = jx_ref[js]
+            jy = jy_ref[js]
             ih = None
         else:
-            if emit_records:
-                n_glob = j_chunk * s_chunk + n_i32
-            else:
-                n_glob = n_i32
-            ih = off + n_glob.astype(_U32)
-            jx = _halton_tile(ih, 0)
-            jy = _halton_tile(ih, 1)
-            if config.sampler == "stratified":
-                # Jittered grid over spp cells (sampling.stratified2
-                # mirror; exact f32 integer math — ih < 2^21).
-                k = int(round(math.sqrt(config.spp)))
-                ihf = ih.astype(_I32).astype(_F32)
-                _, cell = _f32_divmod(ihf, config.spp)
-                cy, cx = _f32_divmod(cell, k)
-                inv_k = _F32(1.0 / k)
-                jx = (cx + jx) * inv_k
-                jy = (cy + jy) * inv_k
+            ih = off + n_i32.astype(_U32)
+            jx, jy = camera_jitter(ih, config)
 
         # Camera ray (sampling.metal:125-157); basis prescaled on host.
         s = ((px + jx) / _F32(W)) * 2.0 - 1.0
@@ -748,12 +528,11 @@ def _path_kernel(config: RenderConfig, n_pixels: int, num_tris: int,
         oz = px * 0.0 + pos[2]
 
         one = px * 0.0 + 1.0
-        col_r, col_g, col_b = one, one, one
-        a_r = px * 0.0
-        a_g, a_b = a_r, a_r
-        alive = in_image
+        zero = px * 0.0
 
-        for bounce in range(config.bounces):
+        def one_bounce(bounce, st):
+            (ox, oy, oz, dx, dy, dz, col_r, col_g, col_b,
+             a_r, a_g, a_b, alive) = st
             (hit, t_hit, prim_f, nhx, nhy, nhz, dfr, dfg, dfb,
              emr, emg, emb, isem) = closest(ox, oy, oz, dx, dy, dz)
             is_em = isem > 0.5
@@ -772,14 +551,13 @@ def _path_kernel(config: RenderConfig, n_pixels: int, num_tris: int,
 
             # NEE (sampleAreaLight, sampling.metal:198-236): hardcoded frame
             # right=(he,0,0), up=(0,0,he), light normal (0,-1,0).
+            bs = pl.ds((n_i32 * B + bounce) * TILE, TILE)
             if reads_draws:
-                bs = pl.ds((n_i32 * config.bounces + bounce) * RAY_SUB,
-                           RAY_SUB)
-                u_nee0 = nee0_ref[bs, :]
-                u_nee1 = nee1_ref[bs, :]
+                u_nee0 = nee0_ref[bs]
+                u_nee1 = nee1_ref[bs]
             else:
-                u_nee0 = _halton_tile(ih, 2 + bounce * 5 + 0)
-                u_nee1 = _halton_tile(ih, 2 + bounce * 5 + 1)
+                u_nee0 = halton(ih, bounce * 4 + 0)
+                u_nee1 = halton(ih, bounce * 4 + 1)
             w0 = u_nee0 * 2.0 - 1.0
             w1 = u_nee1 * 2.0 - 1.0
             tlx = lcx + he * w0 - hx
@@ -802,9 +580,7 @@ def _path_kernel(config: RenderConfig, n_pixels: int, num_tris: int,
             if emit_records:
                 code = (prim_f + 1.0) + jnp.where(occ, _F32(OCC_BIT),
                                                   _F32(0.0))
-                bs = pl.ds((n_i32 * config.bounces + bounce) * RAY_SUB,
-                           RAY_SUB)
-                rec_out_ref[bs, :] = code.astype(_I32)
+                rec_out_ref[bs] = code.astype(_I32)
             contrib = surf & ~occ
             w_c = jnp.where(contrib, gain, 0.0)
             a_r = a_r + lr * w_c * col_r
@@ -813,11 +589,11 @@ def _path_kernel(config: RenderConfig, n_pixels: int, num_tris: int,
 
             # Cosine bounce (sampling.metal:39-66).
             if reads_draws:
-                u0 = cos0_ref[bs, :]
-                u1 = cos1_ref[bs, :]
+                u0 = cos0_ref[bs]
+                u1 = cos1_ref[bs]
             else:
-                u0 = _halton_tile(ih, 2 + bounce * 5 + 2)
-                u1 = _halton_tile(ih, 2 + bounce * 5 + 3)
+                u0 = halton(ih, bounce * 4 + 2)
+                u1 = halton(ih, bounce * 4 + 3)
             phi = _F32(2.0 * math.pi) * u0
             cth = jnp.sqrt(u1)
             sth = jnp.sqrt(jnp.maximum(1.0 - cth * cth, 0.0))
@@ -843,51 +619,29 @@ def _path_kernel(config: RenderConfig, n_pixels: int, num_tris: int,
             dy = jnp.where(surf, sdy, dy)
             dz = jnp.where(surf, sdz, dz)
             alive = surf
+            return (ox, oy, oz, dx, dy, dz, col_r, col_g, col_b,
+                    a_r, a_g, a_b, alive)
 
+        st = jax.lax.fori_loop(0, B, one_bounce,
+                               (ox, oy, oz, dx, dy, dz, one, one, one,
+                                zero, zero, zero, in_image))
+        a_r, a_g, a_b = st[9:12]
         return acc_r + a_r, acc_g + a_g, acc_b + a_b
 
     zero = px * 0.0
+    acc_r, acc_g, acc_b = jax.lax.fori_loop(
+        0, config.spp, one_sample, (zero, zero, zero))
     inv_spp = _F32(1.0 / config.spp)
-    if emit_records:
-        # Accumulate across the sample-chunk grid dim (hdr blocks are
-        # revisited; sequential adds keep bit-parity with the 1-D loop) and
-        # scale once at the last step.
-        n_schunks = config.spp // s_chunk
-        acc_r, acc_g, acc_b = jax.lax.fori_loop(
-            0, s_chunk, one_sample, (zero, zero, zero))
-
-        @pl.when(j_chunk == 0)
-        def _():
-            out_r_ref[...] = jnp.zeros_like(out_r_ref)
-            out_g_ref[...] = jnp.zeros_like(out_g_ref)
-            out_b_ref[...] = jnp.zeros_like(out_b_ref)
-
-        out_r_ref[...] += acc_r
-        out_g_ref[...] += acc_g
-        out_b_ref[...] += acc_b
-
-        @pl.when(j_chunk == n_schunks - 1)
-        def _():
-            out_r_ref[...] *= inv_spp
-            out_g_ref[...] *= inv_spp
-            out_b_ref[...] *= inv_spp
-    else:
-        acc_r, acc_g, acc_b = jax.lax.fori_loop(
-            0, config.spp, one_sample, (zero, zero, zero))
-        out_r_ref[...] = acc_r * inv_spp
-        out_g_ref[...] = acc_g * inv_spp
-        out_b_ref[...] = acc_b * inv_spp
+    out_r_ref[...] = acc_r * inv_spp
+    out_g_ref[...] = acc_g * inv_spp
+    out_b_ref[...] = acc_b * inv_spp
 
 
 def group_aabbs(verts):
-    """[T, 3, 3] verts -> two-level AABB tables: per-GROUP [6, ng_pad]
-    and per-SUPER [6, n_super] (rows: lo xyz, hi xyz). The trailing
-    partial group is padded with copies of the last triangle so padding
-    never widens a box; the group table is then padded to a SUPER
-    multiple with SENTINEL point-boxes at 1e20 whose slab test rejects
-    every ray (their geometry columns are never read — the cond skips
-    the body). Conservative margin: GROUP_AABB_PAD + 1e-5 relative.
-    Module-level: shared by the path AND the grouped MIS packers."""
+    """[T, 3, 3] verts -> per-GROUP AABB table [6, ng] (rows: lo xyz, hi
+    xyz). The trailing partial group is padded with copies of the last
+    triangle so padding never widens a box. Conservative margin:
+    GROUP_AABB_PAD + 1e-5 relative. Shared by the path and MIS packers."""
     n = verts.shape[0]
     ng = max(1, (n + GROUP - 1) // GROUP)
     pad = ng * GROUP - n
@@ -898,59 +652,54 @@ def group_aabbs(verts):
     margin = GROUP_AABB_PAD + 1e-5 * jnp.max(jnp.abs(verts))
     lo = jnp.min(v, axis=1) - margin      # [ng, 3]
     hi = jnp.max(v, axis=1) + margin
-    n_super = (ng + SUPER - 1) // SUPER
-    gpad = n_super * SUPER - ng
-    lo_p = jnp.concatenate([lo, jnp.full((gpad, 3), 1e20, _F32)])
-    hi_p = jnp.concatenate([hi, jnp.full((gpad, 3), -1e20, _F32)])
-    slo = jnp.min(lo_p.reshape(n_super, SUPER, 3), axis=1)
-    shi = jnp.max(hi_p.reshape(n_super, SUPER, 3), axis=1)
-    # Sentinel groups: point boxes at +1e20 (lo == hi == 1e20 rejects
-    # every forward interval; see _safe_inv's conservativeness note).
-    hi_p = jnp.where(hi_p <= -1e20, 1e20, hi_p)
-    gtab = jnp.concatenate([lo_p.T, hi_p.T], axis=0).astype(_F32)
-    stab = jnp.concatenate([slo.T, shi.T], axis=0).astype(_F32)
-    return gtab, stab  # [6, ng_pad], [6, n_super]
+    return jnp.concatenate([lo.T, hi.T], axis=0).astype(_F32)
 
 
 def pad_geo(x):
-    """Zero-pad geometry columns to SUPER * GROUP granularity so
-    sentinel groups' columns exist (never read — their AABB rejects)."""
-    mult = SUPER * GROUP
-    p = ((x.shape[1] + mult - 1) // mult) * mult
+    """Zero-pad geometry columns to a whole number of groups."""
+    p = ((x.shape[1] + GROUP - 1) // GROUP) * GROUP
     return jnp.pad(x, ((0, 0), (0, p - x.shape[1])))
 
 
-def pack_shadow_tables(tri, verts, occluders, tri_geo, aabb_main,
-                       sup_main):
-    """Dense occluder-culled shadow geometry + its two-level AABB tables
-    (falls back to the main tables when no cull is supplied)."""
+def pack_shadow_tables(tri, verts, occluders, tri_geo, aabb_main):
+    """Dense occluder-culled shadow geometry + its group AABB table (the
+    main tables when no cull is supplied)."""
     if occluders is None:
-        return tri_geo, aabb_main, sup_main
+        return tri_geo, aabb_main
     keep = [i for i, k in enumerate(occluders) if k]
-    if keep:
-        kidx = jnp.asarray(keep, jnp.int32)
-        shadow_geo = pad_geo(tri[:12, kidx])
-        aabb_shadow, sup_shadow = group_aabbs(verts[kidx])
-    else:
-        shadow_geo = jnp.zeros((12, SUPER * GROUP), _F32)
-        aabb_shadow = jnp.full((6, SUPER), 1e20, _F32)
-        sup_shadow = jnp.full((6, 1), 1e20, _F32)
-    return shadow_geo, aabb_shadow, sup_shadow
+    if not keep:
+        # One all-zero group behind a box at 1e20 that every ray misses.
+        return (jnp.zeros((12, GROUP), _F32),
+                jnp.full((6, 1), 1e20, _F32))
+    kidx = jnp.asarray(keep, jnp.int32)
+    return pad_geo(tri[:12, kidx]), group_aabbs(verts[kidx])
 
 
-def _pack_inputs(scene: Scene, config: RenderConfig, grouped: bool = False,
-                 occluders=None):
+def camera_vec(scene: Scene, config: RenderConfig) -> jnp.ndarray:
+    """[1, 12] camera row: position, then the basis prescaled by the
+    half-extents of the image plane."""
+    cam = scene.camera
+    res_x, res_y = config.resolution
+    aspect = float(res_x // res_y) if config.integer_aspect else res_x / res_y
+    half_width = jnp.tan(jnp.asarray(cam.horizontal_fov, _F32) / 2.0)
+    half_height = half_width / _F32(aspect)
+    u, v, w = smp.camera_basis(jnp.asarray(cam.direction, _F32),
+                               jnp.asarray(cam.up, _F32))
+    return jnp.concatenate([
+        jnp.asarray(cam.position, _F32), u * half_width, v * half_height, w,
+    ]).reshape(1, 12)
+
+
+def _pack_inputs(scene: Scene, config: RenderConfig, occluders=None):
     """Host-side marshalling: triangle constants to a [NROWS, T] table,
     camera to a prescaled-basis vector, light to scalars — the analog of the
     reference's convert*/makeBuffer step (RTrace/computeShader.swift:13-41).
 
-    ``grouped``: marshal for the grouped-traversal kernels instead —
-    returns (tri_geo [12, P_gpad] zero-padded to a GROUP multiple,
-    cam_vec, light_vec, sph, atab_t [P_pad128, NATTR] TRANSPOSED fetch
-    table, shadow_geo [12, S_gpad] with only the ``occluders``-kept
-    triangles packed dense). Zero padding columns produce den == 0 in the
-    plane test, which the |den| >= 1e-12 guard rejects — they can never
-    win a hit or occlude."""
+    Returns (tri_geo [12, P_gpad] zero-padded to a GROUP multiple, cam_vec,
+    light_vec, sph, atab, aabb, shadow_geo with only the
+    ``occluders``-kept triangles packed dense, shadow aabb). Zero padding
+    columns produce den == 0 in the plane test, which the |den| >= 1e-12
+    guard rejects — they can never win a hit or occlude."""
     compiled = compile_scene(scene.triangles, lane_pad=1)
     tri = jnp.stack([
         compiled.n[:, 0], compiled.n[:, 1], compiled.n[:, 2], compiled.c0,
@@ -962,17 +711,7 @@ def _pack_inputs(scene: Scene, config: RenderConfig, grouped: bool = False,
         compiled.emissive[:, 2],
     ])  # [NROWS, T]
 
-    cam = scene.camera
-    res_x, res_y = config.resolution
-    aspect = float(res_x // res_y) if config.integer_aspect else res_x / res_y
-    half_width = jnp.tan(jnp.asarray(cam.horizontal_fov, _F32) / 2.0)
-    half_height = half_width / _F32(aspect)
-    u, v, w = smp.camera_basis(jnp.asarray(cam.direction, _F32),
-                               jnp.asarray(cam.up, _F32))
-    cam_vec = jnp.concatenate([
-        jnp.asarray(cam.position, _F32), u * half_width, v * half_height, w,
-    ]).reshape(1, 12)
-
+    cam_vec = camera_vec(scene, config)
     light = scene.light
     light_vec = jnp.concatenate([
         jnp.asarray(light.center, _F32).reshape(-1),
@@ -990,9 +729,8 @@ def _pack_inputs(scene: Scene, config: RenderConfig, grouped: bool = False,
     else:
         sph = jnp.zeros((SROWS, 1), _F32)  # placeholder; loops are empty
 
-    # One-hot fetch table [NATTR, tris + spheres]: shading attributes per
-    # primitive, column order matching the kernel's prim_f encoding
-    # (triangles first, then spheres).
+    # Attribute table [NATTR, tris + spheres], column order matching the
+    # kernel's prim_f encoding (triangles first, then spheres).
     n_t = scene.triangles.num_triangles
     zt = jnp.zeros((3, n_t), _F32)
     tri_cols = jnp.concatenate([
@@ -1014,80 +752,45 @@ def _pack_inputs(scene: Scene, config: RenderConfig, grouped: bool = False,
         atab = jnp.concatenate([tri_cols, sph_cols], axis=1)
     else:
         atab = tri_cols
-    if not grouped:
-        return tri, cam_vec, light_vec, sph, atab
-
     verts = jnp.asarray(scene.triangles.verts, _F32)
     tri_geo = pad_geo(tri[:12])                      # [12, P_gpad]
-    aabb_main, sup_main = group_aabbs(verts)
-    shadow_geo, aabb_shadow, sup_shadow = pack_shadow_tables(
-        tri, verts, occluders, tri_geo, aabb_main, sup_main)
-    n_pad = ((atab.shape[1] + PBLK - 1) // PBLK) * PBLK
-    atab_t = jnp.pad(atab, ((0, 0), (0, n_pad - atab.shape[1]))).T
-    return (tri_geo, cam_vec, light_vec, sph, atab_t, shadow_geo,
-            aabb_main, sup_main, aabb_shadow, sup_shadow)
+    aabb = group_aabbs(verts)
+    shadow_geo, aabb_shadow = pack_shadow_tables(tri, verts, occluders,
+                                                 tri_geo, aabb)
+    return (tri_geo, cam_vec, light_vec, sph, atab, aabb, shadow_geo,
+            aabb_shadow)
 
 
-def pregen_draws_for(scene: Scene, config: RenderConfig, interpret=None):
-    """Scene-aware ``pregen_draws``: applies the square-tile pixel
-    permutation when the scene will render through the blocked grouped
-    kernels, so externally hoisted draws line up with the trace kernel's
-    tile layout. Always use this (not bare ``pregen_draws``) when the
-    triangle count may exceed STATIC_UNROLL_MAX."""
-    grouped = scene.triangles.num_triangles > STATIC_UNROLL_MAX
-    off = pixel_rng_offsets(config)
-    if use_blocked_tiles(config, grouped, False):
-        off = to_blocked(off, config)
-    gp = (((scene.triangles.num_triangles + SUPER * GROUP - 1)
-           // (SUPER * GROUP)) * SUPER * GROUP) if grouped else 0
-    return pregen_draws(config, off, interpret, grouped_prims=gp)
-
-
-def pregen_draws(config: RenderConfig, local_offsets=None, interpret=None,
-                 grouped_prims: int = 0):
-    """Pregenerate the trace kernel's random draws (camera jitter +
-    per-bounce NEE/cosine u-pairs) as tile-major planes — a pure function of
-    (config, pixel offsets), hence STEP-INVARIANT across a training or
+def pregen_draws(config: RenderConfig, local_offsets=None):
+    """The trace kernel's random draws (camera jitter + per-bounce
+    NEE/cosine u-pairs) as tile-major planes, in plain jnp: a pure function
+    of (config, pixel offsets), hence step-invariant across a training or
     benchmark loop. Pass the result to ``render_path_decoupled_fused(...,
-    draws=...)`` to hoist ~14 radical-inverse tiles per sample out of every
-    step (XLA's loop-invariant pass SINKS the pregen kernel into `lax.scan`
-    bodies to save memory, so the hoist must be explicit). Returns the
-    6-tuple (nee_u0, nee_u1, cos_u0, cos_u1, jitter_x, jitter_y)."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    draws=...)`` from outside the loop to hoist it (XLA may sink it into a
+    ``lax.scan`` body otherwise). The values are the same f32 Halton digits
+    the kernels compute in ``records_only`` mode. Without
+    ``local_offsets`` the planes follow the single-device pixel order the
+    trace kernel uses (pixel tiles when ``use_blocked_tiles``); shards pass
+    their own linear offsets. Returns the 6-tuple
+    (nee_u0, nee_u1, cos_u0, cos_u1, jitter_x, jitter_y); the first four
+    are [tiles, spp, bounces, TILE] flattened, the jitters [tiles, spp,
+    TILE] flattened."""
     if local_offsets is None:
         local_offsets = pixel_rng_offsets(config)
+        if use_blocked_tiles(config, False):
+            local_offsets = to_blocked(local_offsets, config)
     n_local = local_offsets.shape[0]
-    n_padded = ((n_local + TILE - 1) // TILE) * TILE
-    offsets = jnp.pad(local_offsets,
-                      (0, n_padded - n_local)).reshape(-1, LANES)
-    # grouped_prims must match the consuming trace kernel's chunk choice
-    # (the plane row layout IS the chunk size) — pregen_draws_for threads
-    # it from the scene.
-    s_chunk = _sample_chunk_for(config, False, grouped_prims=grouped_prims)
-    n_schunks = config.spp // s_chunk
-    grid = (n_padded // TILE, n_schunks)
-    nsb = config.spp * config.bounces
-    csb = s_chunk * config.bounces
-    sb_plane = jax.ShapeDtypeStruct(
-        ((n_padded // LANES) * nsb, LANES), jnp.float32)
-    s_plane = jax.ShapeDtypeStruct(
-        ((n_padded // LANES) * config.spp, LANES), jnp.float32)
-    rec_ix = lambda i, j: (i * n_schunks + j, 0)
-    sb_spec = pl.BlockSpec((RAY_SUB * csb, LANES), rec_ix,
-                           memory_space=pltpu.VMEM)
-    s_spec = pl.BlockSpec((RAY_SUB * s_chunk, LANES), rec_ix,
-                          memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        partial(_draws_kernel, config, s_chunk),
-        grid=grid,
-        in_specs=[pl.BlockSpec((RAY_SUB, LANES), lambda i, j: (i, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=(sb_spec, sb_spec, sb_spec, sb_spec, s_spec, s_spec),
-        out_shape=(sb_plane, sb_plane, sb_plane, sb_plane,
-                   s_plane, s_plane),
-        interpret=interpret,
-    )(offsets)
+    n_padded = padded_len(n_local)
+    off = jnp.pad(local_offsets, (0, n_padded - n_local)).reshape(-1, 1, TILE)
+    ih = off + jnp.arange(config.spp, dtype=_U32).reshape(1, -1, 1)
+    jx, jy = camera_jitter(ih, config)
+
+    def per_bounce(k):
+        return jnp.stack([_halton_tile(ih, 2 + b * 5 + k)
+                          for b in range(config.bounces)], axis=2).reshape(-1)
+
+    return (per_bounce(0), per_bounce(1), per_bounce(2), per_bounce(3),
+            jx.reshape(-1), jy.reshape(-1))
 
 
 def _render_pallas_impl(scene: Scene, config: RenderConfig,
@@ -1096,44 +799,29 @@ def _render_pallas_impl(scene: Scene, config: RenderConfig,
                         records_only: bool = False,
                         local_offsets=None, rid_base=None,
                         flat_output: bool = False, draws=None,
-                        occluders=None, grouped=None):
-    """Single-chip entry when local_offsets/rid_base are None; under
+                        occluders=None):
+    """Single-device entry when local_offsets/rid_base are None; under
     shard_map, pass the shard's RNG-offset slice and its global first pixel
     id ([1, 1] i32) — outputs are then the shard's flat [local, 3] hdr.
 
     ``records_only`` (implies raw_records) drops the six random-draw planes
     from the record stream — the backward kernel regenerates the Halton
-    draws in-VMEM instead (pallas_shade recompute_rng mode). This is what
-    makes BASELINE config 5 fit: at 1024^2 x 256 spp x 3 bounces the f32
-    draw planes alone are ~18 GB; the int32 records are 3.2 GB.
-
-    ``grouped``: None = auto (triangle count > STATIC_UNROLL_MAX). The
-    grouped kernels produce the same decisions and (f32) arithmetic as the
-    static unroll — the mode only changes how the primitive loop is
-    scheduled/compiled, so images are identical up to compilation-variance
-    ulps (asserted in tests/test_grouped.py)."""
-    if interpret is None:
-        # Mosaic only targets TPU; interpret elsewhere so the same entry
-        # point runs in CPU CI.
-        interpret = jax.default_backend() != "tpu"
+    draws instead (pallas_shade recompute_rng mode). At 1024^2 x 256 spp x
+    3 bounces the f32 draw planes alone are ~18 GB; the int32 records are
+    3.2 GB."""
+    interpret = route.interpret_mode(interpret)
     n_pixels = config.num_pixels
     num_tris = scene.triangles.num_triangles
     num_spheres = scene.spheres.num_spheres
     assert num_tris + num_spheres + 1 < OCC_BIT, "record encoding limit"
-    if grouped is None:
-        grouped = num_tris > STATIC_UNROLL_MAX
-    # Square-tile mapping: grouped, single-chip, divisible resolution, and
-    # not the decoded-TraceAux mode (its decode assumes linear pixel order).
-    blocked = use_blocked_tiles(config, grouped, local_offsets is not None) \
+    # Pixel-tile mapping: single-device, divisible resolution, and not the
+    # decoded-TraceAux mode (its decode assumes linear pixel order).
+    blocked = use_blocked_tiles(config, local_offsets is not None) \
         and not (emit_records and not (raw_records or records_only))
-
-    if grouped:
-        (tri, cam_vec, light_vec, sph, atab, shadow_geo, aabb_main,
-         sup_main, aabb_shadow, sup_shadow) = _pack_inputs(
-             scene, config, grouped=True, occluders=occluders)
-    else:
-        tri, cam_vec, light_vec, sph, atab = _pack_inputs(scene, config)
-        shadow_geo = aabb_main = sup_main = aabb_shadow = sup_shadow = None
+    if occluders is not None:
+        assert len(occluders) == num_tris, (len(occluders), num_tris)
+    (tri, cam_vec, light_vec, sph, atab, aabb, shadow_geo,
+     aabb_shadow) = _pack_inputs(scene, config, occluders=occluders)
     if local_offsets is None:
         local_offsets = pixel_rng_offsets(config)
         if blocked:
@@ -1141,154 +829,60 @@ def _render_pallas_impl(scene: Scene, config: RenderConfig,
     if rid_base is None:
         rid_base = jnp.zeros((1, 1), _I32)
     n_local = local_offsets.shape[0]
-    n_padded = ((n_local + TILE - 1) // TILE) * TILE
-    offsets = jnp.pad(local_offsets, (0, n_padded - n_local)).reshape(-1, LANES)
+    n_padded = padded_len(n_local)
+    offsets = jnp.pad(local_offsets, (0, n_padded - n_local))
+    n_tiles = n_padded // TILE
 
-    s_chunk = _sample_chunk_for(
-        config, records_only,
-        grouped_prims=tri.shape[1] if grouped else 0) if emit_records \
-        else config.spp
-    n_schunks = config.spp // s_chunk
-    if emit_records:
-        grid = (n_padded // TILE, n_schunks)
-        tile_ix = lambda i, j: (i, 0)
-        const_ix = lambda i, j: (0, 0)
-        rec_ix = lambda i, j: (i * n_schunks + j, 0)
-    else:
-        grid = (n_padded // TILE,)
-        tile_ix = lambda i: (i, 0)
-        const_ix = lambda i: (0, 0)
-
-    if occluders is not None:
-        assert len(occluders) == num_tris, (len(occluders), num_tris)
-        occluders = tuple(bool(x) for x in occluders)
-    n_shadow = (sum(occluders) if occluders is not None else num_tris)
-    # SMEM holds ~1 MB of scoped windows; a separate occluder-culled shadow
-    # geometry table doubles the per-table cost, which overflows past ~7k
-    # triangles (measured: 12.8k tris = 808K + 648K > 1 MB). Above the
-    # budget (or when there is no cull) the shadow loop traverses the MAIN
-    # table + AABBs instead — occlusion decisions are identical (the cull
-    # only ever removes provably-non-occluding triangles); only the cull's
-    # throughput win is given back at extreme scene sizes.
-    share_shadow = grouped and (
-        shadow_geo is tri
-        or 64 * (tri.shape[1] + shadow_geo.shape[1]) > 900_000)
     kernel = partial(_path_kernel, config, n_pixels, num_tris, num_spheres,
-                     emit_records, records_only, s_chunk,
-                     None if grouped else occluders, grouped, n_shadow,
-                     blocked, share_shadow)
-    plane = jax.ShapeDtypeStruct((n_padded // LANES, LANES), _F32)
-    out_specs = pl.BlockSpec((RAY_SUB, LANES), tile_ix,
-                             memory_space=pltpu.VMEM)
+                     emit_records, records_only, aabb.shape[1],
+                     aabb_shadow.shape[1], blocked)
+    tile_spec = pl.BlockSpec((TILE,), lambda i: (i,))
+    plane = jax.ShapeDtypeStruct((n_padded,), _F32)
     out_shapes = [plane, plane, plane]
-    out_spec_list = [out_specs, out_specs, out_specs]
+    out_specs = [tile_spec, tile_spec, tile_spec]
     draw_arrays = ()
-    draw_specs = []
     if emit_records:
         nsb = config.spp * config.bounces
-        csb = s_chunk * config.bounces
-        sb_plane = jax.ShapeDtypeStruct(
-            ((n_padded // LANES) * nsb, LANES), jnp.float32)
-        sb_spec = pl.BlockSpec((RAY_SUB * csb, LANES), rec_ix,
-                               memory_space=pltpu.VMEM)
-        s_plane = jax.ShapeDtypeStruct(
-            ((n_padded // LANES) * config.spp, LANES), jnp.float32)
-        s_spec = pl.BlockSpec((RAY_SUB * s_chunk, LANES), rec_ix,
-                              memory_space=pltpu.VMEM)
-        # records per (sample, bounce): the int32 decision stream.
-        # records_only regenerates the draws in the backward; otherwise the
-        # draws are pregenerated ONCE (step-invariant) and read as inputs.
-        out_shapes += [jax.ShapeDtypeStruct(
-            ((n_padded // LANES) * nsb, LANES), jnp.int32)]
-        out_spec_list += [sb_spec]
+        sb_spec = pl.BlockSpec((nsb * TILE,), lambda i: (i,))
+        out_shapes.append(jax.ShapeDtypeStruct((n_padded * nsb,), _I32))
+        out_specs.append(sb_spec)
         if not records_only:
             if draws is not None:
-                expect = [(sb_plane.shape, _F32)] * 4 + [(s_plane.shape,
-                                                          _F32)] * 2
-                got = [(tuple(d.shape), d.dtype) for d in draws]
-                if len(draws) != 6 or any(
-                        tuple(g[0]) != e[0] for g, e in zip(got, expect)):
+                expect = [(n_padded * nsb,)] * 4 + [(n_padded * config.spp,)] * 2
+                got = [tuple(d.shape) for d in draws]
+                if got != expect:
                     raise ValueError(
                         "draws= does not match this (config, shard): expected"
-                        f" plane shapes {[e[0] for e in expect]}, got"
-                        f" {[g[0] for g in got]} — regenerate with"
+                        f" plane shapes {expect}, got {got} — regenerate with"
                         " pallas_path.pregen_draws(config, local_offsets)")
             draw_arrays = tuple(draws) if draws is not None else \
-                pregen_draws(config, local_offsets, interpret,
-                             grouped_prims=tri.shape[1] if grouped else 0)
-            draw_specs = [sb_spec] * 4 + [s_spec] * 2
+                pregen_draws(config, local_offsets)
     if draws is not None and (records_only or not emit_records):
         # A caller-supplied pregen that this mode cannot consume is a bug at
-        # the call site (stale amortization assumptions) — fail loudly
-        # instead of silently re-deriving the draws in-kernel (ADVICE r3).
+        # the call site — fail loudly instead of silently re-deriving.
         raise ValueError(
             "draws= was passed but this mode regenerates draws in-kernel "
             f"(records_only={records_only}, emit_records={emit_records}); "
             "drop the argument or disable records_only")
-    if grouped:
-        geo_specs = [
-            pl.BlockSpec((12, tri.shape[1]), const_ix,
-                         memory_space=pltpu.SMEM),    # triangle geometry
-            pl.BlockSpec((SROWS, max(num_spheres, 1)), const_ix,
-                         memory_space=pltpu.SMEM),    # spheres
-            pl.BlockSpec(tuple(atab.shape), const_ix,
-                         memory_space=pltpu.VMEM),    # transposed fetch table
-        ]
-        if share_shadow:
-            # One geometry table for both loops (see share_shadow above).
-            geo_specs += [
-                pl.BlockSpec((6, aabb_main.shape[1]), const_ix,
-                             memory_space=pltpu.SMEM),  # group AABBs
-                pl.BlockSpec((6, sup_main.shape[1]), const_ix,
-                             memory_space=pltpu.SMEM),  # super AABBs
-            ]
-            geo_args = (tri, sph, atab, aabb_main, sup_main)
-        else:
-            geo_specs += [
-                pl.BlockSpec((12, shadow_geo.shape[1]), const_ix,
-                             memory_space=pltpu.SMEM),  # packed shadow tris
-                pl.BlockSpec((6, aabb_main.shape[1]), const_ix,
-                             memory_space=pltpu.SMEM),  # group AABBs (closest)
-                pl.BlockSpec((6, sup_main.shape[1]), const_ix,
-                             memory_space=pltpu.SMEM),  # super AABBs (closest)
-                pl.BlockSpec((6, aabb_shadow.shape[1]), const_ix,
-                             memory_space=pltpu.SMEM),  # group AABBs (shadow)
-                pl.BlockSpec((6, sup_shadow.shape[1]), const_ix,
-                             memory_space=pltpu.SMEM),  # super AABBs (shadow)
-            ]
-            geo_args = (tri, sph, atab, shadow_geo, aabb_main, sup_main,
-                        aabb_shadow, sup_shadow)
-    else:
-        geo_specs = [
-            pl.BlockSpec((NROWS, num_tris), const_ix,
-                         memory_space=pltpu.SMEM),    # triangles
-            pl.BlockSpec((SROWS, max(num_spheres, 1)), const_ix,
-                         memory_space=pltpu.SMEM),    # spheres
-            pl.BlockSpec((NATTR, num_tris + num_spheres), const_ix,
-                         memory_space=pltpu.VMEM),    # one-hot fetch table
-        ]
-        geo_args = (tri, sph, atab)
+    s_spec = pl.BlockSpec((config.spp * TILE,), lambda i: (i,))
+    draw_specs = ([sb_spec] * 4 + [s_spec] * 2) if draw_arrays else []
+    tables = tuple(route.pad_pow2(t) for t in
+                   (cam_vec, light_vec, tri, sph, atab, aabb, shadow_geo,
+                    aabb_shadow, halton_bounce_table(config.bounces)))
     outs = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((RAY_SUB, LANES), tile_ix,
-                         memory_space=pltpu.VMEM),        # offsets
-            pl.BlockSpec((1, 1), const_ix,
-                         memory_space=pltpu.SMEM),        # rid_base
-            pl.BlockSpec((1, 12), const_ix,
-                         memory_space=pltpu.SMEM),        # camera
-            pl.BlockSpec((1, 6), const_ix,
-                         memory_space=pltpu.SMEM),        # light
-            *geo_specs,
-            *draw_specs,
-        ],
-        out_specs=tuple(out_spec_list),
+        grid=(n_tiles,),
+        in_specs=[tile_spec, pl.no_block_spec]
+        + [pl.no_block_spec] * len(tables) + draw_specs,
+        out_specs=tuple(out_specs),
         out_shape=tuple(out_shapes),
+        backend="triton",
+        compiler_params=route.compiler_params(),
         interpret=interpret,
-    )(offsets, rid_base, cam_vec, light_vec, *geo_args, *draw_arrays)
+        name="path_trace",
+    )(offsets, rid_base, *tables, *draw_arrays)
     r, g, b = outs[:3]
-    hdr = jnp.stack([r.reshape(-1), g.reshape(-1), b.reshape(-1)], axis=-1)
+    hdr = jnp.stack([r, g, b], axis=-1)
     if flat_output:
         hdr = hdr[:n_local]
     elif blocked:
@@ -1298,21 +892,19 @@ def _render_pallas_impl(scene: Scene, config: RenderConfig,
     if not emit_records:
         return hdr
     if raw_records or records_only:
-        # Undecoded tile-major planes, exactly as the kernels wrote them —
-        # consumed relayout-free by the hand-written backward kernel
+        # Undecoded tile-major planes, exactly as the kernel wrote them —
+        # consumed relayout-free by the backward kernel
         # (ops/pallas_shade.py) with identical BlockSpecs.
         return hdr, tuple(outs[3:]) + tuple(draw_arrays)
 
-    # Decode per-(sample, bounce) planes: rows are
-    # [tile, sample, bounce, RAY_SUB] x LANES; pixel id within a tile is
-    # sub * LANES + lane.
+    # Decode per-(sample, bounce) planes: [tile, sample, bounce, TILE].
     def sb(x):
-        x = x.reshape(grid[0], config.spp, config.bounces, RAY_SUB * LANES)
+        x = x.reshape(n_tiles, config.spp, config.bounces, TILE)
         return jnp.moveaxis(x, 0, 2).reshape(
             config.spp, config.bounces, n_padded)[:, :, :n_local]
 
     def s(x):
-        x = x.reshape(grid[0], config.spp, RAY_SUB * LANES)
+        x = x.reshape(n_tiles, config.spp, TILE)
         return jnp.moveaxis(x, 0, 1).reshape(
             config.spp, n_padded)[:, :n_local]
 
@@ -1325,13 +917,12 @@ def _render_pallas_impl(scene: Scene, config: RenderConfig,
 
 @partial(jax.custom_vjp, nondiff_argnums=(1,))
 def render_path_pallas(scene: Scene, config: RenderConfig) -> jnp.ndarray:
-    """Variant-B path trace via the Pallas megakernel. Returns [H, W, 3] HDR.
-    Differentiable: the backward re-traces with record emission and runs the
-    hand-written Pallas backward (ops/pallas_shade.py) — kernel-speed
-    gradients identical to oracle AD. Forward-only callers pay nothing for
-    it; gradient callers pay one extra (record-emitting) trace, so steady
-    -state training loops should call ``render_path_decoupled_fused``
-    directly (one trace total)."""
+    """Variant-B path trace via the megakernel. Returns [H, W, 3] HDR.
+    Differentiable: the backward re-traces with record emission and runs
+    the hand-written backward (ops/pallas_shade.py). Forward-only callers
+    pay nothing for it; gradient callers pay one extra (record-emitting)
+    trace, so steady-state training loops should call
+    ``render_path_decoupled_fused`` directly (one trace total)."""
     return _render_pallas_impl(scene, config)
 
 

@@ -1,42 +1,34 @@
 """Hand-written Pallas backward for the decoupled path tracer.
 
-``render_path_decoupled`` (ops/decoupled.py) splits the render at the
-discrete/continuous boundary: a Pallas trace kernel emits visibility records
-+ random draws, and a differentiable jnp "shade replay" recomputes radiance
-from them. That replay exists ONLY so jax AD has a graph to differentiate —
-its forward value is identical to the trace kernel's own hdr output. XLA's
-AD of the replay costs ~43 ms (fwd 17 + remat 17 + bwd 9) at 512^2/16spp on
-one v5e chip, all of it HBM-bound elementwise traffic.
+The trace kernel (pallas_path.py, ``emit_records=True``) writes one int32
+visibility record per (sample, bounce, ray); with the random draws (read
+from pregenerated planes or regenerated here) those records fix every
+discrete decision of the forward. This module attaches a ``custom_vjp``
+whose forward is the trace kernel's hdr, unchanged, and whose backward is
+one Pallas kernel (Triton route) that recomputes each sample's path from
+the records on chip and walks the bounces in reverse, accumulating:
 
-This module deletes that cost: a ``custom_vjp`` whose forward is the *trace
-kernel's hdr, unchanged* (zero extra work), and whose backward is one Pallas
-kernel that recomputes each sample's path from the recorded aux planes
-entirely in VMEM and walks the three bounces in reverse, accumulating:
-
-  * per-primitive cotangents (normal, plane constant, diffuse, emissive) via
-    one [P, rays-tile] one-hot matmul per (sample, bounce) on the MXU —
-    DEFAULT precision over bf16 chunk-splits (exact fetch / <=2^-18-rel
-    accumulation at 1/6 the passes of HIGHEST; see the in-kernel comments);
+  * per-primitive cotangents (normal, plane constant, diffuse, emissive,
+    and sphere center/radius) into this program's own block of a
+    [programs, rows, P] partial-sum array, by one-hot sums over the
+    primitives the program's lanes hit (route.accumulate_rows); the blocks
+    are added afterwards by ``jnp.sum`` — deterministic, no atomics;
   * camera cotangents (position, prescaled basis) and light cotangents
-    (center, color, normal) as running [32, 128] partial-sum planes, reduced
-    once per tile.
+    (center, color, normal) as per-lane partial sums, reduced once per
+    program into its row of a [programs, NSCAL] array.
 
-The reverse-mode math mirrors the jnp replay expression-for-expression
-(same clip gates with >=/<= bounds, same normalize-by-divide chains, same
-clamp-to-primitive-0 on dead lanes), so gradients match ``jax.grad`` of the
-replay — and therefore of the jnp oracle renderer — to fp32 rounding
-(asserted in tests/test_pallas_shade.py).
-
-Aux planes are consumed RAW (tile-major, exactly as the trace kernel wrote
-them, pallas_path.py `bs`/`js` slices) — no relayout between the kernels.
+The reverse-mode math mirrors the jnp replay (ops/decoupled.py)
+expression-for-expression (same clip gates with >=/<= bounds, same
+normalize-by-divide chains), so gradients match ``jax.grad`` of the replay
+— and therefore of the jnp oracle renderer — to fp32 rounding (asserted in
+tests/test_pallas_shade.py).
 
 Scope: triangle AND sphere scenes. Sphere hits replay the analytic quadratic
 (reference: intersectSphere, shaders_old.metal:108-136) and its hand-derived
-reverse — hit distance t(center, radius) and the hit-point normal are smooth,
-so sphere-center/radius cotangents flow at kernel speed (BASELINE config 4's
-inverse-rendering workload); visibility stays piecewise-constant exactly like
-the oracle's AD. Reference for the forward being differentiated:
-RTrace/raytrace.metal:11-111.
+reverse, so sphere-center/radius cotangents flow at kernel speed (BASELINE
+config 4's inverse-rendering workload); visibility stays piecewise-constant
+exactly like the oracle's AD. Reference for the forward being
+differentiated: RTrace/raytrace.metal:11-111.
 """
 from __future__ import annotations
 
@@ -45,15 +37,16 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .. import sampling as smp
 from ..intersect import compile_scene
+from ..render import pixel_rng_offsets
 from ..types import RenderConfig, Scene
-from .pallas_path import (GROUP, LANES, OCC_BIT, PBLK, RAY_SUB,
-                          STATIC_UNROLL_MAX, TILE, _f32_divmod, _halton_tile,
-                          _render_pallas_impl)
+from . import pallas_path as pp
+from . import route
+from .pallas_path import (OCC_BIT, _halton_tile, _render_pallas_impl,
+                          camera_jitter, camera_vec)
 
 _F32 = jnp.float32
 _I32 = jnp.int32
@@ -67,39 +60,34 @@ NTAB_SPH = 14
 NROWS_TAB = 11
 NROWS_TAB_SPH = 16
 NSCAL = 21  # pos(3) hu(3) hv(3) wb(3) lc(3) lcol(3) ln(3)
+NSCAL_PAD = 32
 
 
 def _shade_bwd_kernel(config: RenderConfig, n_pixels: int, num_prims: int,
-                      num_spheres: int, recompute_rng: bool, s_chunk: int,
-                      grouped: bool, blocked: bool, *refs):
-    """One ray tile: recompute every sample's path from the aux planes, then
-    reverse the bounce chain accumulating parameter cotangents.
+                      num_spheres: int, recompute_rng: bool, blocked: bool,
+                      *refs):
+    """One program: recompute every sample's path for TILE rays from the
+    records, then reverse the bounce chain accumulating parameter
+    cotangents.
 
     ``recompute_rng``: the trace pass emitted only the int32 records
     (records_only mode — BASELINE config 5's memory fix); the jitter and
     NEE/cosine draws are regenerated here from the RNG offsets with the
-    same f32 Halton digits as the trace kernel — bit-identical values,
-    zero extra HBM planes.
+    same f32 Halton digits as the trace kernel — zero extra HBM planes.
 
-    ``grouped``: high-triangle-count mode (pallas_path.STATIC_UNROLL_MAX).
-    ``table_ref`` is then TRANSPOSED ([P_pad, nrows]) and both the one-hot
-    fetch and the cotangent accumulation contract per 128-primitive block
-    — a monolithic [P, TILE] one-hot at 1k+ prims would blow VMEM. The
-    replay itself is record-driven, so backward cost stays O(1) in scene
-    size outside these block loops."""
-    if grouped:
-        refs, dtab_scr = refs[:-1], refs[-1]
-    else:
-        dtab_scr = None
+    The replay is record-driven: attribute fetches are gathers and the
+    cotangent sums cover only the primitives this program's lanes hit, so
+    the cost is O(1) in scene size apart from those sums."""
     if recompute_rng:
         (g_r_ref, g_g_ref, g_b_ref, rec_ref, off_ref, rid_base_ref,
-         table_ref, cam_ref, light_ref, dtab_ref, dscal_ref) = refs
+         table_ref, cam_ref, light_ref, dpart_ref, dscal_ref) = refs
         nee0_ref = nee1_ref = cos0_ref = cos1_ref = jx_ref = jy_ref = None
     else:
         (g_r_ref, g_g_ref, g_b_ref, rec_ref, nee0_ref, nee1_ref, cos0_ref,
          cos1_ref, jx_ref, jy_ref, rid_base_ref, table_ref, cam_ref,
-         light_ref, dtab_ref, dscal_ref) = refs
+         light_ref, dpart_ref, dscal_ref) = refs
         off_ref = None
+    TILE = pp.TILE
     W = config.width
     H = config.height
     B = config.bounces
@@ -109,20 +97,18 @@ def _shade_bwd_kernel(config: RenderConfig, n_pixels: int, num_prims: int,
     he = _F32(config.area_light_half_extent)
 
     pid = pl.program_id(0)
-    sub = jax.lax.broadcasted_iota(_I32, (RAY_SUB, LANES), 0)
-    lanei = jax.lax.broadcasted_iota(_I32, (RAY_SUB, LANES), 1)
+    lane = jax.lax.broadcasted_iota(_I32, (TILE,), 0)
     # Global pixel id (rid_base = shard's first pixel under shard_map).
-    rid = rid_base_ref[0, 0] + pid * TILE + sub * LANES + lanei
+    rid = rid_base_ref[0, 0] + pid * TILE + lane
     if blocked:
-        # Square-tile pixel mapping — must mirror the trace kernel's
+        # Pixel-tile mapping — must mirror the trace kernel's
         # (pallas_path._path_kernel) so the replayed camera rays match the
         # recorded decisions bit-for-bit.
-        from .pallas_path import BLOCK
-        nbx = W // BLOCK
-        blk_s = rid_base_ref[0, 0] // TILE + pid
-        off_l = sub * LANES + lanei
-        px = ((blk_s % nbx) * BLOCK + off_l % BLOCK).astype(_F32)
-        py = ((blk_s // nbx) * BLOCK + off_l // BLOCK).astype(_F32)
+        nbx = W // pp.BLOCK_W
+        blk = rid_base_ref[0, 0] // TILE + pid
+        px = ((blk % nbx) * pp.BLOCK_W + lane % pp.BLOCK_W).astype(_F32)
+        py = ((blk // nbx) * (TILE // pp.BLOCK_W)
+              + lane // pp.BLOCK_W).astype(_F32)
     else:
         px = (rid % W).astype(_F32)
         py = (rid // W).astype(_F32)
@@ -134,109 +120,30 @@ def _shade_bwd_kernel(config: RenderConfig, n_pixels: int, num_prims: int,
     lcol = [light_ref[0, 3 + k] for k in range(3)]
     ln = [light_ref[0, 6 + k] for k in range(3)]
 
-    # Upstream hdr cotangent for this tile (already scaled by 1/spp).
+    # Upstream hdr cotangent for this program (already scaled by 1/spp).
     g_r = g_r_ref[...]
     g_g = g_g_ref[...]
     g_b = g_b_ref[...]
 
     zero = px * 0.0
+    route.zero_partials(dpart_ref, ntab, dpart_ref.shape[2])
 
-    # Exact ONE-PASS attribute fetch (measured: the previous x6-pass
-    # HIGHEST-precision matmuls were ~40% of the whole backward's runtime).
-    # Split the f32 table into three bf16-representable chunks (t0 = bf16(t),
-    # t1 = bf16(t - t0), t2 = t - t0 - t1 — nearby-value subtractions, so
-    # the chunks reconstruct t EXACTLY in f32), stack them along the OUTPUT
-    # row dim, and contract once at DEFAULT precision against the plain
-    # one-hot. Folding the three row blocks then sums t0+t1+t2 per winning
-    # column — exact in any order (t1+t2 has <=17 significant bits; adding
-    # t0 rounds to the original f32).
-    # The replay only CONSUMES n, c0, diffuse, is_em (+ the sphere rows) —
-    # the emissive VALUES never appear in the reverse sweep (their cotangent
-    # d_em is just a hit_light-masked g), so the three em rows are dropped
-    # from the fetch table: rows [0:7] + [10:nrows].
-    nfetch = nrows - 3
-    if not grouped:
-        tabv = jnp.concatenate([table_ref[0:7], table_ref[10:nrows]], axis=0)
-        t0 = tabv.astype(jnp.bfloat16).astype(_F32)
-        r1 = tabv - t0
-        t1 = r1.astype(jnp.bfloat16).astype(_F32)
-        tab9 = jnp.concatenate([t0, t1, r1 - t1], axis=0)  # [3*nfetch, P]
-        p_iota = jax.lax.broadcasted_iota(_I32, (P, TILE), 0)
-    else:
-        P_pad = table_ref.shape[0]
-        n_pblocks = P_pad // PBLK
-        pb_iota = jax.lax.broadcasted_iota(_I32, (PBLK, TILE), 0)
-
-    def fetch(pc, hit):
-        """Attrs via the chunk-stacked one-hot matmul (exact, see above).
-        Returns (onehot [P, TILE] or None in grouped mode,
-        nfetch planes [RAY_SUB, LANES])."""
-        if grouped:
-            # BLOCK-RANGE fetch (mirrors pallas_path.fetch_attrs): only the
-            # blocks spanned by the tile's recorded winners are contracted.
-            # Miss lanes fetch zeros — every consumer of their planes is
-            # gated downstream, so live-lane values/cotangents are
-            # unchanged (asserted vs the oracle in tests/test_grouped.py).
-            pcf = pc.reshape(1, TILE)
-            pmin = jnp.min(jnp.where(hit, pc, P - 1))
-            pmax = jnp.max(jnp.where(hit, pc, 0))
-
-            def blk_body(bk, at_acc):
-                off = pl.multiple_of(bk * PBLK, PBLK)
-                oh = (pb_iota == (pcf - bk * PBLK)).astype(_F32)
-                blk_full = table_ref[pl.ds(off, PBLK), :]
-                blk = jnp.concatenate(
-                    [blk_full[:, 0:7], blk_full[:, 10:nrows]], axis=1)
-                b0 = blk.astype(jnp.bfloat16).astype(_F32)
-                br = blk - b0
-                b1 = br.astype(jnp.bfloat16).astype(_F32)
-                blk9 = jnp.concatenate([b0, b1, br - b1], axis=1)
-                at9 = jax.lax.dot_general(
-                    blk9, oh, (((0,), (0,)), ((), ())),
-                    preferred_element_type=_F32,
-                    precision=jax.lax.Precision.DEFAULT)  # [3*nfetch, TILE]
-                return at_acc + (at9[:nfetch] + at9[nfetch:2 * nfetch]
-                                 + at9[2 * nfetch:])
-
-            at_acc = jax.lax.fori_loop(pmin // PBLK, pmax // PBLK + 1,
-                                       blk_body,
-                                       jnp.zeros((nfetch, TILE), _F32))
-            at = at_acc.reshape(nfetch, RAY_SUB, LANES)
-            return None, [at[k] for k in range(nfetch)]
-        onehot = (p_iota == pc.reshape(1, TILE)).astype(_F32)
-        at9 = jax.lax.dot_general(
-            tab9, onehot, (((1,), (0,)), ((), ())),
-            preferred_element_type=_F32,
-            precision=jax.lax.Precision.DEFAULT)  # [3*nfetch, TILE]
-        at = (at9[:nfetch] + at9[nfetch:2 * nfetch] + at9[2 * nfetch:])
-        at = at.reshape(nfetch, RAY_SUB, LANES)
-        return onehot, [at[k] for k in range(nfetch)]
-
+    # The replay only consumes n, c0, diffuse, is_em (+ the sphere rows) —
+    # the emissive values never appear in the reverse sweep (their
+    # cotangent d_em is just a hit_light-masked g).
+    fetch_rows = list(range(0, 7)) + list(range(10, nrows))
 
     off = off_ref[...] if recompute_rng else None
-    j_chunk = pl.program_id(1)
 
-    def one_sample(n_i32, carry):
-        dtab_acc, dscal = carry
-        js = pl.ds(n_i32 * RAY_SUB, RAY_SUB)
+    def one_sample(n_i32, dscal):
         if recompute_rng:
-            # Regenerate the trace kernel's draws (pallas_path one_sample
-            # mirror — bit-identical f32 Halton digits). Sample index is
-            # global; the aux-plane slices are within this step's block.
-            ih = off + (j_chunk * s_chunk + n_i32).astype(_U32)
-            jx = _halton_tile(ih, 0)
-            jy = _halton_tile(ih, 1)
-            if config.sampler == "stratified":
-                k = int(round(math.sqrt(config.spp)))
-                ihf = ih.astype(_I32).astype(_F32)
-                _, cell = _f32_divmod(ihf, config.spp)
-                cy_c, cx_c = _f32_divmod(cell, k)
-                inv_k = _F32(1.0 / k)
-                jx = (cx_c + jx) * inv_k
-                jy = (cy_c + jy) * inv_k
+            # Regenerate the trace kernel's draws (same f32 Halton digits).
+            ih = off + n_i32.astype(_U32)
+            jx, jy = camera_jitter(ih, config)
         else:
-            jx = jx_ref[js, :]
-            jy = jy_ref[js, :]
+            js = pl.ds(n_i32 * TILE, TILE)
+            jx = jx_ref[js]
+            jy = jy_ref[js]
 
         # ---------------- forward recompute (saving residuals) -----------
         s = ((px + jx) / _F32(W)) * 2.0 - 1.0
@@ -252,13 +159,14 @@ def _shade_bwd_kernel(config: RenderConfig, n_pixels: int, num_prims: int,
         alive = in_image
         res = []
         for b in range(B):
-            bs = pl.ds((n_i32 * B + b) * RAY_SUB, RAY_SUB)
-            code = rec_ref[bs, :]
+            bs = pl.ds((n_i32 * B + b) * TILE, TILE)
+            code = rec_ref[bs]
             occ = code >= OCC_BIT
             prim = code % OCC_BIT - 1
             hit = prim >= 0
+            # Miss lanes gather primitive 0; every consumer is gated.
             pc = jnp.clip(prim, 0, P - 1)
-            onehot, at = fetch(pc, hit)
+            at = [table_ref[r, pc] for r in fetch_rows]
             # Table normal (zeros in sphere columns) vs the effective shading
             # normal nh (sphere columns override it below).
             tnx, tny, tnz, c0 = at[0], at[1], at[2], at[3]
@@ -318,8 +226,8 @@ def _shade_bwd_kernel(config: RenderConfig, n_pixels: int, num_prims: int,
                 w0 = _halton_tile(ih, 2 + b * 5 + 0) * 2.0 - 1.0
                 w1 = _halton_tile(ih, 2 + b * 5 + 1) * 2.0 - 1.0
             else:
-                w0 = nee0_ref[bs, :] * 2.0 - 1.0
-                w1 = nee1_ref[bs, :] * 2.0 - 1.0
+                w0 = nee0_ref[bs] * 2.0 - 1.0
+                w1 = nee1_ref[bs] * 2.0 - 1.0
             tlx = (lc[0] + he * w0) - hx
             tly = lc[1] - hy
             tlz = (lc[2] + he * w1) - hz
@@ -343,8 +251,8 @@ def _shade_bwd_kernel(config: RenderConfig, n_pixels: int, num_prims: int,
                 u0 = _halton_tile(ih, 2 + b * 5 + 2)
                 u1 = _halton_tile(ih, 2 + b * 5 + 3)
             else:
-                u0 = cos0_ref[bs, :]
-                u1 = cos1_ref[bs, :]
+                u0 = cos0_ref[bs]
+                u1 = cos1_ref[bs]
             phi = _F32(2.0 * math.pi) * u0
             cth = jnp.sqrt(u1)
             sth = jnp.sqrt(1.0 - cth * cth)
@@ -359,7 +267,7 @@ def _shade_bwd_kernel(config: RenderConfig, n_pixels: int, num_prims: int,
             crxn, cryn, crzn = crx / crn, cry / crn, crz / crn
 
             res.append(dict(
-                onehot=onehot, pc=pc, hit=hit, tn=(tnx, tny, tnz),
+                pc=pc, hit=hit, tn=(tnx, tny, tnz),
                 nh=(nhx, nhy, nhz), df=df,
                 ok=ok, sden=sden, tt=tt, ts=ts,
                 o=(ox, oy, oz), d=(dx, dy, dz),
@@ -620,63 +528,13 @@ def _shade_bwd_kernel(config: RenderConfig, n_pixels: int, num_prims: int,
             d_tn[1] += dy * d_den
             d_tn[2] += dz * d_den
 
-            # (1) table cotangent accumulation: [P, ntab] one-hot matmul.
+            # (1) per-primitive cotangents into this program's partials.
             rows = [d_tn[0], d_tn[1], d_tn[2], d_c0,
                     d_df[0], d_df[1], d_df[2],
                     d_em[0], d_em[1], d_em[2]]
             if num_spheres:
                 rows += [d_sc[0], d_sc[1], d_sc[2], d_srad]
-            planes = jnp.stack(rows, axis=0)  # [ntab, 32, 128]
-            planes = planes.reshape(ntab, TILE)
-            # Same chunk-split trick as the fetch, on the cotangent side:
-            # split the planes into THREE bf16-exact chunks stacked along
-            # the output dim (the same one-hot contracts all chunk blocks),
-            # fold the [*, ntab] column blocks. Every f32 splits exactly
-            # into 3 bf16 chunks, the one-hot is 0/1 (bf16-exact), and the
-            # MXU accumulates in f32 — so the accumulated cotangents equal
-            # the HIGHEST-precision result up to f32 summation order, at
-            # half its MXU passes. (Round 3 shipped a TWO-chunk variant,
-            # <=2^-18 rel per partial; the round-4 TPU-hardware parity run
-            # measured 3.4e-3 relative error on sphere-radius gradients —
-            # near-cancelling partials amplify the truncated residual — so
-            # the third chunk is load-bearing, not paranoia. Interpret/CPU
-            # multiplies in f32 where either split is exact; only real-MXU
-            # runs see the difference: tests/test_tpu_hw.py.)
-            p0 = planes.astype(jnp.bfloat16).astype(_F32)
-            pr = planes - p0
-            p1 = pr.astype(jnp.bfloat16).astype(_F32)
-            planes9 = jnp.concatenate([p0, p1, pr - p1], axis=0)  # [3*ntab,T]
-            if grouped:
-                # BLOCK-RANGE scatter into the VMEM scratch accumulator:
-                # only blocks containing this bounce's recorded winners are
-                # touched (miss lanes carry provably-zero cotangent rows —
-                # every d_* above is gated by surf/contrib/hit_light/sel —
-                # so excluding them from the range drops nothing).
-                pcf = r["pc"].reshape(1, TILE)
-                pmin = jnp.min(jnp.where(r["hit"], r["pc"], P - 1))
-                pmax = jnp.max(jnp.where(r["hit"], r["pc"], 0))
-
-                def blk_body(bk, c):
-                    off = pl.multiple_of(bk * PBLK, PBLK)
-                    oh = (pb_iota == (pcf - bk * PBLK)).astype(_F32)
-                    pb = jax.lax.dot_general(
-                        oh, planes9, (((1,), (1,)), ((), ())),
-                        preferred_element_type=_F32,
-                        precision=jax.lax.Precision.DEFAULT)  # [PBLK,3*ntab]
-                    dtab_scr[pl.ds(off, PBLK), :] += (
-                        pb[:, :ntab] + pb[:, ntab:2 * ntab]
-                        + pb[:, 2 * ntab:])
-                    return c
-
-                jax.lax.fori_loop(pmin // PBLK, pmax // PBLK + 1,
-                                  blk_body, 0)
-            else:
-                part = jax.lax.dot_general(
-                    r["onehot"], planes9, (((1,), (1,)), ((), ())),
-                    preferred_element_type=_F32,
-                    precision=jax.lax.Precision.DEFAULT)  # [P, 3*ntab]
-                dtab_acc = dtab_acc + (part[:, :ntab] + part[:, ntab:2 * ntab]
-                                       + part[:, 2 * ntab:])
+            route.accumulate_rows(dpart_ref, r["pc"], r["hit"], rows, P)
 
         # Camera reverse (bounce-0 entry o/d are the camera ray).
         d_pos[0] += d_o[0]
@@ -692,100 +550,59 @@ def _shade_bwd_kernel(config: RenderConfig, n_pixels: int, num_prims: int,
             d_hv[c] += t * d_r[c]
             d_wb[c] -= d_r[c]
 
-        new_scal = tuple(d_pos + d_hu + d_hv + d_wb + d_lc + d_lcol + d_ln)
-        return dtab_acc, new_scal
+        return tuple(d_pos + d_hu + d_hv + d_wb + d_lc + d_lcol + d_ln)
 
-    if grouped:
-        # Grouped cotangents accumulate in the VMEM scratch (block-range
-        # dynamic stores); the fori carry holds only the scalar planes.
-        dtab_scr[...] = jnp.zeros_like(dtab_scr)
-        dtab0 = jnp.zeros((8, LANES), _F32)  # unused dummy carry
-    else:
-        dtab0 = jnp.zeros((P, ntab), _F32)
-    scal0 = tuple(zero for _ in range(NSCAL))
-    dtab_acc, dscal = jax.lax.fori_loop(
-        0, s_chunk, one_sample, (dtab0, scal0), unroll=False)
-
-    @pl.when((pid == 0) & (j_chunk == 0))
-    def _():
-        dtab_ref[...] = jnp.zeros_like(dtab_ref)
-        dscal_ref[...] = jnp.zeros_like(dscal_ref)
-
-    dtab_ref[...] += dtab_scr[...] if grouped else dtab_acc
-    scal_row = jnp.concatenate(
-        [jnp.sum(p).reshape(1, 1) for p in dscal], axis=1)  # [1, NSCAL]
-    dscal_ref[...] += scal_row
+    dscal = jax.lax.fori_loop(0, config.spp, one_sample,
+                              tuple(zero for _ in range(NSCAL)))
+    for k, p in enumerate(dscal):
+        dscal_ref[0, k] = jnp.sum(p)
 
 
 def _bwd_pallas(config: RenderConfig, n_pixels: int, num_prims: int,
                 num_spheres: int, g_planes, aux_planes, table, cam_vec,
                 light_vec, interpret: bool, rid_base, n_local: int,
-                offsets=None, grouped: bool = False, blocked: bool = False):
-    from .pallas_path import _sample_chunk_for
-    n_padded = ((n_local + TILE - 1) // TILE) * TILE
+                offsets=None, blocked: bool = False):
+    """Run the backward kernel; returns (d_table [ntab, P], d_scal
+    [NSCAL]) summed over programs."""
+    TILE = pp.TILE
+    n_padded = pp.padded_len(n_local)
+    n_tiles = n_padded // TILE
     recompute_rng = offsets is not None
-    # grouped_prims MUST match the record emitter's (the record-plane
-    # block layout is the chunk size); table is [P_pad, nrows] here and
-    # the emitter's geometry table has the same 128-padded column count.
-    s_chunk = _sample_chunk_for(
-        config, recompute_rng,
-        grouped_prims=table.shape[0] if grouped else 0)
-    n_schunks = config.spp // s_chunk
-    grid = (n_padded // TILE, n_schunks)
-    csb = s_chunk * config.bounces
-    nrows = NROWS_TAB_SPH if num_spheres else NROWS_TAB
+    nsb = config.spp * config.bounces
     ntab = NTAB_SPH if num_spheres else NTAB
-    # Grouped mode: table arrives TRANSPOSED [P_pad, nrows]; the dtab
-    # output covers the padding rows too (their cotangents are zero — no
-    # record ever points at them) and is sliced by the caller.
-    p_out = table.shape[0] if grouped else num_prims
-    table_spec = (pl.BlockSpec((table.shape[0], nrows),
-                               lambda i, j: (0, 0), memory_space=pltpu.VMEM)
-                  if grouped else
-                  pl.BlockSpec((nrows, num_prims), lambda i, j: (0, 0),
-                               memory_space=pltpu.VMEM))
+    p_pad = route.padded_prims(num_prims)
+    table = jnp.pad(table, ((0, route.next_pow2(table.shape[0])
+                             - table.shape[0]),
+                            (0, p_pad - table.shape[1])))
 
-    ray_spec = pl.BlockSpec((RAY_SUB, LANES), lambda i, j: (i, 0),
-                            memory_space=pltpu.VMEM)
-    rec_ix = lambda i, j: (i * n_schunks + j, 0)
-    sb_spec = pl.BlockSpec((RAY_SUB * csb, LANES), rec_ix,
-                           memory_space=pltpu.VMEM)
-    s_spec = pl.BlockSpec((RAY_SUB * s_chunk, LANES), rec_ix,
-                          memory_space=pltpu.VMEM)
-
+    ray_spec = pl.BlockSpec((TILE,), lambda i: (i,))
+    sb_spec = pl.BlockSpec((nsb * TILE,), lambda i: (i,))
+    s_spec = pl.BlockSpec((config.spp * TILE,), lambda i: (i,))
     if recompute_rng:
-        aux_specs = [sb_spec, ray_spec]          # records + RNG offsets
+        aux_specs = [sb_spec, ray_spec]           # records + RNG offsets
         aux_inputs = (*aux_planes, offsets)
     else:
         aux_specs = [sb_spec] * 5 + [s_spec] * 2  # records + uv + jitter
         aux_inputs = aux_planes
     kernel = partial(_shade_bwd_kernel, config, n_pixels, num_prims,
-                     num_spheres, recompute_rng, s_chunk, grouped, blocked)
-    dtab, dscal = pl.pallas_call(
+                     num_spheres, recompute_rng, blocked)
+    dpart, dscal = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[ray_spec, ray_spec, ray_spec,             # g r/g/b
-                  *aux_specs,
-                  pl.BlockSpec((1, 1), lambda i, j: (0, 0),
-                               memory_space=pltpu.SMEM),    # rid_base
-                  table_spec,                               # table
-                  pl.BlockSpec((1, 12), lambda i, j: (0, 0),
-                               memory_space=pltpu.SMEM),    # camera
-                  pl.BlockSpec((1, 9), lambda i, j: (0, 0),
-                               memory_space=pltpu.SMEM)],   # light
-        out_specs=(
-            pl.BlockSpec((p_out, ntab), lambda i, j: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, NSCAL), lambda i, j: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(jax.ShapeDtypeStruct((p_out, ntab), _F32),
-                   jax.ShapeDtypeStruct((1, NSCAL), _F32)),
-        scratch_shapes=([pltpu.VMEM((p_out, ntab), _F32)] if grouped
-                        else []),
+        grid=(n_tiles,),
+        in_specs=[ray_spec, ray_spec, ray_spec, *aux_specs]
+        + [pl.no_block_spec] * 4,
+        out_specs=(pl.BlockSpec((1, ntab, p_pad), lambda i: (i, 0, 0)),
+                   pl.BlockSpec((1, NSCAL_PAD), lambda i: (i, 0))),
+        out_shape=(jax.ShapeDtypeStruct((n_tiles, ntab, p_pad), _F32),
+                   jax.ShapeDtypeStruct((n_tiles, NSCAL_PAD), _F32)),
+        backend="triton",
+        compiler_params=route.compiler_params(),
         interpret=interpret,
-    )(*g_planes, *aux_inputs, rid_base, table, cam_vec, light_vec)
-    return dtab[:num_prims], dscal
+        name="path_backward",
+    )(*g_planes, *aux_inputs, rid_base, table, route.pad_pow2(cam_vec),
+      route.pad_pow2(light_vec))
+    return (jnp.sum(dpart, axis=0)[:, :num_prims],
+            jnp.sum(dscal, axis=0)[:NSCAL])
 
 
 # ---------------------------------------------------------------------------
@@ -793,67 +610,56 @@ def _bwd_pallas(config: RenderConfig, n_pixels: int, num_prims: int,
 # backward = the kernel above.
 # ---------------------------------------------------------------------------
 
-@partial(jax.custom_vjp, nondiff_argnums=(0, 1, 2, 3))
-def _attach_grad(config: RenderConfig, interpret, grouped, blocked, hdr,
-                 table, cam_vec, light_vec, aux_planes, rid_base, offsets):
+@partial(jax.custom_vjp, nondiff_argnums=(0, 1, 2))
+def _attach_grad(config: RenderConfig, interpret, blocked, hdr, table,
+                 cam_vec, light_vec, aux_planes, rid_base, offsets):
     return hdr
 
 
-def _attach_fwd(config, interpret, grouped, blocked, hdr, table, cam_vec,
-                light_vec, aux_planes, rid_base, offsets):
+def _attach_fwd(config, interpret, blocked, hdr, table, cam_vec, light_vec,
+                aux_planes, rid_base, offsets):
     return hdr, (table, cam_vec, light_vec, aux_planes, rid_base, offsets)
 
 
-def _attach_bwd(config, interpret, grouped, blocked, resids, g):
+def _attach_bwd(config, interpret, blocked, resids, g):
     table, cam_vec, light_vec, aux_planes, rid_base, offsets = resids
     n_local = g.shape[0] * (g.shape[1] if g.ndim == 3 else 1)
-    n_padded = ((n_local + TILE - 1) // TILE) * TILE
+    n_padded = pp.padded_len(n_local)
     num_prims = table.shape[1]
     has_spheres = table.shape[0] == NROWS_TAB_SPH
 
-    # hdr cotangent ([H, W, 3] or flat [local, 3]) -> padded tile planes,
+    # hdr cotangent ([H, W, 3] or flat [local, 3]) -> padded planes,
     # pre-scaled by 1/spp (hdr = sum_samples acc / spp). Blocked mode
-    # permutes the cotangent into the square-tile pixel order the record
-    # planes were written in.
+    # permutes the cotangent into the pixel-tile order the record planes
+    # were written in.
     gs = (g * _F32(1.0 / config.spp)).reshape(-1, 3)
     if blocked:
-        from .pallas_path import to_blocked
-        gs = to_blocked(gs, config)
+        gs = pp.to_blocked(gs, config)
     gs = jnp.pad(gs, ((0, n_padded - n_local), (0, 0)))
-    g_planes = tuple(gs[:, c].reshape(-1, LANES) for c in range(3))
+    g_planes = tuple(gs[:, c] for c in range(3))
 
     if offsets is not None and len(aux_planes) == 1:
-        off_planes = jnp.pad(offsets, (0, n_padded - n_local)).reshape(
-            -1, LANES)
+        off_plane = jnp.pad(offsets, (0, n_padded - n_local))
     else:
-        off_planes = None
-    if grouped:
-        # Transposed padded view for the block-contracted kernel; a linear
-        # re-layout, so the dtab slice maps straight back to [nrows, P].
-        p_pad = ((num_prims + PBLK - 1) // PBLK) * PBLK
-        table_in = jnp.pad(table, ((0, 0), (0, p_pad - num_prims))).T
-    else:
-        table_in = table
+        off_plane = None
     dtab, dscal = _bwd_pallas(config, config.num_pixels, num_prims,
                               1 if has_spheres else 0, g_planes,
-                              aux_planes, table_in, cam_vec, light_vec,
+                              aux_planes, table, cam_vec, light_vec,
                               interpret, rid_base, n_local,
-                              offsets=off_planes, grouped=grouped,
-                              blocked=blocked)
+                              offsets=off_plane, blocked=blocked)
     zrow = jnp.zeros((1, num_prims), _F32)
     if has_spheres:
         # [n(3), c0, df(3), em(3)] + is_em(0) + [center(3), radius] + is_sph(0)
         d_table = jnp.concatenate(
-            [dtab.T[:NTAB], zrow, dtab.T[NTAB:NTAB_SPH], zrow], axis=0)
+            [dtab[:NTAB], zrow, dtab[NTAB:NTAB_SPH], zrow], axis=0)
     else:
-        d_table = jnp.concatenate([dtab.T, zrow], axis=0)  # +is_em row
-    d_cam = dscal[:, 0:12]
-    d_light = dscal[:, 12:21]
+        d_table = jnp.concatenate([dtab, zrow], axis=0)  # +is_em row
+    d_cam = dscal[0:12].reshape(1, 12)
+    d_light = dscal[12:21].reshape(1, 9)
 
     # Aux planes are non-differentiable (int records / stop-gradient'd RNG
     # draws): int inputs take float0 cotangents, float inputs zero arrays
     # (DCE'd — they feed a stop_gradient upstream).
-    import numpy as np
     d_aux = jax.tree.map(
         lambda x: (np.zeros(x.shape, jax.dtypes.float0)
                    if jnp.issubdtype(x.dtype, jnp.integer)
@@ -905,37 +711,27 @@ def _pack_diff_inputs(scene: Scene, config: RenderConfig):
     else:
         table = jnp.stack(tri_rows)  # [NROWS_TAB, T]
 
-    cam = scene.camera
-    res_x, res_y = config.resolution
-    aspect = float(res_x // res_y) if config.integer_aspect else res_x / res_y
-    half_width = jnp.tan(jnp.asarray(cam.horizontal_fov, _F32) / 2.0)
-    half_height = half_width / aspect
-    u, v, w = smp.camera_basis(jnp.asarray(cam.direction, _F32),
-                               jnp.asarray(cam.up, _F32))
-    cam_vec = jnp.concatenate([
-        jnp.asarray(cam.position, _F32), u * half_width, v * half_height, w,
-    ]).reshape(1, 12)
     light = scene.light
     light_vec = jnp.concatenate([
         jnp.asarray(light.center, _F32).reshape(-1),
         jnp.asarray(light.color, _F32).reshape(-1),
         jnp.asarray(light.normal, _F32).reshape(-1),
     ]).reshape(1, 9)
-    return table, cam_vec, light_vec
+    return table, camera_vec(scene, config), light_vec
 
 
 def _auto_records_only(config: RenderConfig, n_pixels=None) -> bool:
-    """records_only when the six f32 draw planes would exceed ~2 GB —
-    BASELINE config 5 (1024^2 x 256 spp) needs ~18 GB of them; regenerating
-    the draws in the backward kernel costs a few Halton evaluations per
-    (sample, bounce) instead. ``n_pixels`` is the pixel count this device
-    actually renders (the shard-local count under shard_map — a sharded run
-    should only pay the recompute-RNG cost at the per-device memory pressure
-    that requires it)."""
+    """records_only when the six f32 draw planes would take more than a
+    quarter of the device's memory (BASELINE config 5, 1024^2 x 256 spp,
+    needs ~18 GB of them); regenerating the draws in the backward kernel
+    costs a few Halton evaluations per (sample, bounce) instead.
+    ``n_pixels`` is the pixel count this device actually renders (the
+    shard-local count under shard_map)."""
     if n_pixels is None:
         n_pixels = config.num_pixels
     nsb = n_pixels * config.spp * config.bounces
-    return nsb * 4 * 4 + n_pixels * config.spp * 2 * 4 > 2 << 30
+    draw_bytes = nsb * 4 * 4 + n_pixels * config.spp * 2 * 4
+    return draw_bytes > route.device_memory_bytes() // 4
 
 
 def render_path_decoupled_fused(scene: Scene, config: RenderConfig,
@@ -948,33 +744,28 @@ def render_path_decoupled_fused(scene: Scene, config: RenderConfig,
 
     ``draws``: optional ``pallas_path.pregen_draws(config)`` result. The
     draws are step-invariant; pass them from OUTSIDE a training/bench loop
-    to hoist their generation out of every step (XLA sinks, not hoists, the
-    pregen kernel when left inside a scan body).
+    to hoist their generation out of every step.
 
     ``occluders``: optional ``intersect.potential_occluders(scene, config)``
     tuple — statically culls provably-non-occluding triangles from the
     shadow loops (~1/3 of the Cornell shadow work; decisions unchanged).
     Compute it on the concrete scene and rebuild it if geometry moves."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    interpret = route.interpret_mode(interpret)
     if records_only is None:
         records_only = _auto_records_only(config)
-    grouped = scene.triangles.num_triangles > STATIC_UNROLL_MAX
-    from .pallas_path import to_blocked, use_blocked_tiles
-    blocked = use_blocked_tiles(config, grouped, False)
+    blocked = pp.use_blocked_tiles(config, False)
     hdr, aux = _render_pallas_impl(jax.lax.stop_gradient(scene), config,
                                    interpret=interpret, emit_records=True,
                                    raw_records=True,
                                    records_only=records_only, draws=draws,
                                    occluders=occluders)
     table, cam_vec, light_vec = _pack_diff_inputs(scene, config)
-    from ..render import pixel_rng_offsets
     offsets = pixel_rng_offsets(config) if records_only else None
     if blocked and offsets is not None:
-        offsets = to_blocked(offsets, config)
-    return _attach_grad(config, interpret, grouped, blocked, hdr, table,
-                        cam_vec, light_vec, tuple(aux),
-                        jnp.zeros((1, 1), jnp.int32), offsets)
+        offsets = pp.to_blocked(offsets, config)
+    return _attach_grad(config, interpret, blocked, hdr, table, cam_vec,
+                        light_vec, tuple(aux), jnp.zeros((1, 1), jnp.int32),
+                        offsets)
 
 
 def render_path_fused_local(scene: Scene, config: RenderConfig,
@@ -985,11 +776,9 @@ def render_path_fused_local(scene: Scene, config: RenderConfig,
     and returns flat [local, 3] hdr with the hand-written backward attached.
     Cotangents for the replicated scene parameters are per-shard partials —
     shard_map's transpose inserts the psum."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    interpret = route.interpret_mode(interpret)
     if records_only is None:
         records_only = _auto_records_only(config, local_offsets.shape[0])
-    grouped = scene.triangles.num_triangles > STATIC_UNROLL_MAX
     hdr, aux = _render_pallas_impl(jax.lax.stop_gradient(scene), config,
                                    interpret=interpret, emit_records=True,
                                    raw_records=True,
@@ -999,7 +788,7 @@ def render_path_fused_local(scene: Scene, config: RenderConfig,
                                    draws=draws, occluders=occluders)
     table, cam_vec, light_vec = _pack_diff_inputs(scene, config)
     offsets = local_offsets if records_only else None
-    # Sharded path: linear pixel mapping (use_blocked_tiles(..., True) is
-    # False — shards slice the linear pixel range).
-    return _attach_grad(config, interpret, grouped, False, hdr, table,
-                        cam_vec, light_vec, tuple(aux), rid_base, offsets)
+    # Sharded path: linear pixel mapping (shards slice the linear pixel
+    # range).
+    return _attach_grad(config, interpret, False, hdr, table, cam_vec,
+                        light_vec, tuple(aux), rid_base, offsets)

@@ -1,15 +1,14 @@
-"""Multi-chip rendering on the FAST kernel paths.
+"""Multi-device rendering on the FAST kernel paths.
 
 parallel/mesh.py shards the jnp oracle renderer; this module shards the
-Pallas megakernel + hand-written backward instead, so a pod renders at
-per-chip kernel speed (~1000 Mrays/s fwd+bwd on v5e) with the usual recipe:
+trace kernels + hand-written backwards instead, with the usual recipe:
 pixels sharded over the ``rays`` mesh axis, scene replicated, parameter
 gradients all-reduced by shard_map's transpose (a psum over ``rays`` that
-XLA lowers onto ICI).
+XLA hands to NCCL).
 
 Correctness hinges on the kernels' RNG being a pure function of the GLOBAL
 pixel id (SURVEY.md §7): each shard passes its first pixel id (``rid_base``)
-into the kernel, so the sharded image is bit-identical to the single-chip
+into the kernel, so the sharded image is bit-identical to the single-device
 one per pixel.
 """
 from __future__ import annotations
@@ -72,9 +71,8 @@ def render_path_fused_sharded(scene: Scene, config: RenderConfig, mesh,
 def render_mis_fused_sharded(scene: Scene, config: RenderConfig, mesh,
                              interpret=None, occluders=None) -> jnp.ndarray:
     """Differentiable variant-A MIS render, pixels sharded over ``rays``,
-    on the MIS trace kernel + hand-written backward (round 5 — the
-    flagship distributed capability is no longer integrator-shaped).
-    Returns the global [H, W, 3] hdr; sharded == single-chip bit-identical
+    on the MIS trace kernel + hand-written backward.
+    Returns the global [H, W, 3] hdr; sharded == single-device bit-identical
     per pixel (the kernels' jitter is a pure function of the global pixel
     id threaded via rid_base)."""
     from ..ops.pallas_mis_bwd import render_mis_fused_local
@@ -108,28 +106,20 @@ def render_mis_fused_sharded(scene: Scene, config: RenderConfig, mesh,
 
 def make_overlapped_grad_fn(scene_template: Scene, config: RenderConfig,
                             mesh, n_microtiles: int = 4, interpret=None):
-    """Forward + backward + gradient all-reduce with the all-reduce
-    OVERLAPPED with the backward pass (BASELINE north-star; SURVEY.md §2.4
-    comm-backend row).
+    """Forward + backward + gradient all-reduce, with the all-reduce
+    issued per microtile so it can overlap the backward pass (BASELINE
+    north-star; SURVEY.md §2.4 comm-backend row).
 
     The plain fused path (render_path_fused_sharded) lets shard_map's
-    transpose insert ONE psum per parameter at the very end of the backward
-    — ICI sits idle until every microtile's cotangents exist. Here each
-    shard splits its pixel slice into ``n_microtiles`` chunks and runs the
-    full fwd+bwd per chunk, psum'ing that chunk's parameter cotangents
-    immediately, so XLA's async collectives COULD ride ICI while chunk
-    k+1's backward is still computing. Gradient sums are mathematically
-    identical to the single-psum design (fp order differs).
-
-    Measured schedule (benchmarks/overlap_evidence.py, AOT-compiled for a
-    v5e:2x4 topology): XLA's AllReduceCombiner merges the per-microtile
-    psums back into ONE end-of-step tuple all-reduce — at Cornell-box
-    parameter counts (~2 KB of gradients) the collective is latency-bound
-    and the combiner's choice is optimal, so this path currently compiles
-    to the same schedule as the plain one. The microtile structure is kept
-    for when parameter counts grow (it becomes load-bearing once gradient
-    bytes rival ICI latency x bandwidth; re-run the evidence script after
-    any such change — see BASELINE.md "overlap evidence").
+    transpose insert ONE psum per parameter at the very end of the
+    backward. Here each shard splits its pixel slice into ``n_microtiles``
+    chunks and runs the full fwd+bwd per chunk, psum'ing that chunk's
+    parameter cotangents immediately, so the collective of chunk k is
+    independent of chunk k+1's compute. Gradient sums are mathematically
+    identical to the single-psum design (fp order differs). XLA's
+    all-reduce combiner may merge the per-microtile psums back into one;
+    whether the overlap happens on a given device is read from a profiler
+    trace, not assumed.
 
     Returns ``grad_fn(scene, target) -> (loss, grads)`` where loss is the
     global image MSE and grads is a scene-pytree cotangent (int leaves

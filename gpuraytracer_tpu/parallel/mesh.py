@@ -1,10 +1,11 @@
 """Device mesh + sharded rendering (SURVEY.md §2.4).
 
 The reference is single-device (one Metal queue, blocking waits,
-renderer.swift:144); distribution here is a TPU-native design: the
-*pixel/ray batch* shards across a 1-D ``rays`` mesh axis (data-parallel
-analog), scene parameters stay replicated, and reductions ride XLA
-collectives (``psum``) over ICI/DCN. Because all randomness is a pure
+renderer.swift:144); here the *pixel/ray batch* shards across a 1-D
+``rays`` mesh axis (data-parallel analog), scene parameters stay
+replicated, and reductions are XLA collectives (``psum``, NCCL on GPUs).
+A flat 1-D mesh suits NVLink's all-to-all links: every card reaches every
+other at the same rate. Because all randomness is a pure
 function of (pixel, sample, bounce, dim), the sharded render is
 bit-identical to the single-device render — asserted in tests.
 """
@@ -78,8 +79,8 @@ SPP_AXIS = "spp"
 
 def make_ray_spp_mesh(n_rays: int, n_spp: int,
                       devices: Optional[Sequence[jax.Device]] = None) -> Mesh:
-    """2-D mesh: pixels shard over ``rays``, samples over ``spp``. Lay the
-    ``spp`` axis innermost so its psum rides the fastest ICI links."""
+    """2-D mesh: pixels shard over ``rays``, samples over ``spp`` (the
+    ``spp`` axis innermost)."""
     devices = list(devices) if devices is not None else jax.devices()
     if len(devices) != n_rays * n_spp:
         raise ValueError(f"need {n_rays * n_spp} devices, got {len(devices)}")

@@ -2,7 +2,7 @@
 backend").
 
 The reference is a single process that aborts on any failure
-(RTrace/renderer.swift:33-41); multi-host execution is a TPU-native design:
+(RTrace/renderer.swift:33-41); multi-host execution works as follows:
 ``jax.distributed.initialize`` brings up the JAX runtime across hosts, each
 host computes its shard of the pixel batch through the same
 ``shard_map``-based renderer (parallel/mesh.py), and host 0 materializes the

@@ -4,8 +4,8 @@ pixels sharded over the ``rays`` mesh axis and scene parameters replicated).
 
 Gradient flow: jax.grad differentiates *through* the shard_map'd renderer;
 XLA inserts the parameter-gradient all-reduce (psum over ``rays``) because the
-parameters are replicated while the loss pixels are sharded — the TPU-native
-analog of DDP gradient all-reduce, riding ICI collectives (SURVEY.md §2.4).
+parameters are replicated while the loss pixels are sharded — the analog of
+DDP gradient all-reduce (SURVEY.md §2.4).
 """
 from __future__ import annotations
 
@@ -60,8 +60,8 @@ def make_train_step(scene: Scene, config: RenderConfig, mesh,
 
 def make_train_step_fused(scene: Scene, config: RenderConfig, mesh,
                           learning_rate: float = 1e-2, optimizer=None):
-    """Sharded training step on the FAST path: Pallas trace kernel forward +
-    hand-written Pallas backward per shard (parallel/fast.py), parameter
+    """Sharded training step on the FAST path: trace kernel forward +
+    hand-written backward kernel per shard (parallel/fast.py), parameter
     gradients all-reduced by shard_map's transpose over ``rays``. Handles
     triangle and sphere scenes (the backward replays the analytic sphere
     quadratic in-kernel)."""

@@ -12,8 +12,8 @@ Two integrators, mirroring the reference's two active kernels:
 
 Data-dependent control flow (per-thread ``break`` out of the bounce loop,
 hit-type branches) becomes fixed-shape masked arithmetic: every lane computes
-every bounce and masks decide what accumulates — the TPU-native restructuring
-called out in SURVEY.md §7. Pixels are processed in chunks via ``lax.map`` to
+every bounce and masks decide what accumulates — the fixed-shape
+restructuring called out in SURVEY.md §7. Pixels are processed in chunks via ``lax.map`` to
 bound the [rays, triangles] working set; samples loop inside the chunk.
 """
 from __future__ import annotations
@@ -37,11 +37,11 @@ class RenderOutput(NamedTuple):
     ldr: Optional[jnp.ndarray]  # [H, W, 3] f32 in [0,1] (mis integrator only)
 
 
-def _zeros3(ref: jnp.ndarray) -> jnp.ndarray:
+def _zeros3(ref: jnp.ndarray, dtype=_F32) -> jnp.ndarray:
     """[..., 3] zeros derived arithmetically from ``ref`` [...] so loop-carry
     initializers keep the same device-varying status as loop bodies under
     shard_map manual axes."""
-    return jnp.broadcast_to((ref.astype(_F32) * 0.0)[..., None],
+    return jnp.broadcast_to((ref.astype(dtype) * 0.0)[..., None],
                             ref.shape + (3,))
 
 
@@ -110,8 +110,8 @@ def _path_trace_chunk(
             cam.horizontal_fov, px, py, uv, config.integer_aspect,
         )
 
-        color = jnp.ones(o.shape, _F32)
-        acc = jnp.zeros(o.shape, _F32)
+        color = jnp.ones(o.shape, o.dtype)
+        acc = jnp.zeros(o.shape, o.dtype)
         alive = jnp.ones(px.shape, bool)
 
         for bounce in range(config.bounces):
@@ -167,7 +167,7 @@ def _path_trace_chunk(
     # each sample from the tiny carry (SURVEY.md §7 "Pallas backward at
     # speed-of-light" — same policy applies to the jnp path).
     lum, _ = jax.lax.scan(
-        jax.checkpoint(one_sample), _zeros3(px),
+        jax.checkpoint(one_sample), _zeros3(px, cam.position.dtype),
         jnp.arange(config.spp, dtype=jnp.uint32))
     return lum / _F32(config.spp)
 
@@ -267,7 +267,7 @@ def _bounce_strategy(
     # lanes (d_ggx's numerator is a^2), and 1/0 = inf there turns the
     # MIS-weighted product into 0 * inf = NaN — gated out of the primal
     # image but poisoning every gradient that flows through the product
-    # (found by the real-TPU parity tier; the reference's per-thread
+    # (found by an accelerator gradient-parity run; the reference's per-thread
     # control flow never evaluates these lanes at all). pdf == 0 always
     # implies weight == 0, so the term is 0 by the estimator's 0*(x/0):=0
     # convention — inv_pdf := 0 realizes exactly that.
@@ -301,7 +301,7 @@ def _mis_chunk(
     spheres = scene.spheres if scene.spheres.num_spheres > 0 else None
     s_per = config.mis_samples // 3
 
-    accumulated = jnp.zeros(px.shape + (3,), _F32)
+    accumulated = jnp.zeros(px.shape + (3,), cam.position.dtype)
     for i in range(config.camera_rays):
         jitter = smp.hash_random_2d(px, py, jnp.uint32(i))
         o, d = smp.generate_camera_ray(
@@ -353,8 +353,8 @@ def _mis_chunk(
         per_sample = (tables["light_u"], tables["cosine_u"],
                       tables["cosine_sec_u"], tables["vndf_u"],
                       tables["vndf_sec_u"])
-        mis_sum, _ = jax.lax.scan(jax.checkpoint(strategies), _zeros3(px),
-                                  per_sample)
+        mis_sum, _ = jax.lax.scan(jax.checkpoint(strategies),
+                                  _zeros3(px, cam.position.dtype), per_sample)
         sampled = mis_sum / _F32(s_per)
         accumulated = accumulated + jnp.where(surf[..., None], sampled, 0.0)
 

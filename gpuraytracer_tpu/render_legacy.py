@@ -20,7 +20,7 @@ What makes this tier distinct from the active variant-A MIS integrator
   * true recursion (depth ``legacy_bounces``) instead of variant A's fixed
     one-extra-NEE.
 
-TPU-native restructuring: GPU-thread recursion becomes a statically unrolled
+Restructured for JAX: GPU-thread recursion becomes a statically unrolled
 depth-``legacy_bounces`` Python recursion over dense pixel arrays; per-thread
 ``continue``/sentinel branches become masks; sphere lights are hit-tested by
 concatenating them into the sphere SoA as emissive spheres; box lights are
@@ -28,7 +28,7 @@ hit-tested as 12 emissive triangles appended by the scene constructor (the
 arrays here drive sampling/pdf only). Randomness is a pure function of
 (pixel, sample, strategy, depth) — shard-invariant (SURVEY.md §7). The
 reference's per-sample loop becomes a ``lax.scan`` with rematerialization so
-the backward pass stays VMEM-friendly.
+the backward pass stays memory-light.
 """
 from __future__ import annotations
 
@@ -84,7 +84,7 @@ def _light_kind(scene: Scene) -> str:
 
 def _rng2(px, py, sample_i, strategy: int, depth: int, draw: int):
     """[..., 2] uniforms, pure function of (pixel, sample, strategy, depth,
-    draw) — the TPU-native replacement of the legacy hashRandom stream
+    draw) — the replacement of the legacy hashRandom stream
     (shaders_old.metal:749 ties sampleId to an 800-wide pixel stride; we key
     on indices directly so renders are resolution- and shard-invariant)."""
     c = (_U32(1 + draw)

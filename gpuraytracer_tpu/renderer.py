@@ -2,7 +2,7 @@
 
 Reference: /root/reference/RTrace/renderer.swift:29-146. Its ``init()`` does
 the one-time work (pipeline compile, scene build, buffer marshalling, accel
-build) and ``draw()`` dispatches one frame and saves the PNG. The TPU-native
+build) and ``draw()`` dispatches one frame and saves the PNG. The JAX
 equivalents: jit compile (pipeline), scene pytree on device (buffers),
 ``compile_scene`` inside the jitted fn (accel build), one jit call + PNG save
 (draw). The jitted callable is cached on the instance so repeated draws skip

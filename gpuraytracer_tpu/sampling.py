@@ -241,10 +241,9 @@ def power_heuristic_3(pdf1, pdf2, pdf3, samples_per_strategy, beta=1.0):
     every call site passes 1.0 (shaders.metal:534,574,606).
 
     beta == 1 skips ``jnp.power`` entirely (value-identical: x^1 = x):
-    power's VJP is beta*x^(beta-1), and x^0 lowers to exp(0 * log(x)) on
-    TPU — NaN at x = 0, which cosine_pdf produces on every backfacing
-    lane. (CPU constant-folds the pow away, so only real-TPU gradient runs
-    ever saw it: tests/test_tpu_hw.py.)"""
+    power's VJP is beta*x^(beta-1), and x^0 can lower to exp(0 * log(x))
+    on an accelerator — NaN at x = 0, which cosine_pdf produces on every
+    backfacing lane (the CPU constant-folds the pow away)."""
     n = _F32(samples_per_strategy)
     if isinstance(beta, (int, float)) and float(beta) == 1.0:
         p1 = n * pdf1

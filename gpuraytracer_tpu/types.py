@@ -1,6 +1,6 @@
-"""Core pytree types for the TPU-native path tracer.
+"""Core pytree types for the path tracer.
 
-Struct-of-arrays scene representation with fixed dtypes. This is the TPU-native
+Struct-of-arrays scene representation with fixed dtypes. This is the JAX
 equivalent of the reference's host<->device ABI structs
 (/root/reference/RTrace/shaderTypes.h:13-96): instead of an array-of-structs
 marshalled into Metal buffers, every field is a dense jnp array so the whole
@@ -11,8 +11,8 @@ All geometry/shading math is float32; images accumulate in float32 end-to-end
 and are quantized to uint8 only at the PNG boundary (image.py). The
 reference's rgba16Float intermediate render target
 (/root/reference/RTrace/renderer.swift:74-82) has no analog here — its
-precision loss was a GPU-texture-format constraint, not a feature, so the
-TPU framework keeps the HDR buffer at full f32 (strictly more precision at
+precision loss was a GPU-texture-format constraint, not a feature, so this
+framework keeps the HDR buffer at full f32 (strictly more precision at
 the same uint8 output).
 """
 from __future__ import annotations
@@ -171,12 +171,12 @@ class Scene:
 @_pytree_dataclass
 class CompiledScene:
     """Intersection-ready scene: per-triangle plane + barycentric projectors,
-    padded to a TPU lane multiple.
+    padded to a multiple of ``lane_pad``.
 
-    This is the TPU-native replacement for the driver-built BVH
+    This is the oracle's replacement for the driver-built BVH
     (``setupAccelerationStructures``, RTrace/computeShader.swift:45-97): at
     reference scene sizes (34 triangles) a brute-force vectorized
-    intersection over all triangles beats any traversal structure on TPU, so
+    intersection over all triangles needs no traversal structure, so
     "compiling" a scene means precomputing, for each triangle:
 
       n       geometric normal (normalized cross(e1,e2))

@@ -1,10 +1,11 @@
 """Persistent XLA compilation cache setup.
 
-The megakernel's unrolled triangle loop produces a large Mosaic program
-(~4 min compile at 512^2/16spp). Enabling JAX's persistent cache makes that a
-one-time cost per (config, machine): subsequent processes load the compiled
-binary in seconds. Called by the CLI and bench entry points; library code
-never mutates global config.
+Compiling the kernels takes seconds to minutes per configuration; the
+persistent cache makes that a one-time cost per (configuration, machine).
+Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already keeps its cache
+there and nothing here overrides it; otherwise the cache lives at the
+fixed in-checkout ``.jax_cache``. Called by the CLI and bench entry
+points; library code never mutates global config.
 """
 from __future__ import annotations
 
@@ -14,11 +15,17 @@ DEFAULT_CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), ".jax_cache")
 
 
-def enable_compilation_cache(cache_dir: str | None = None) -> None:
+def cache_dir() -> str:
+    """The directory the compilation cache uses."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_CACHE_DIR
+
+
+def enable_compilation_cache() -> str:
     import jax
 
-    cache_dir = cache_dir or os.environ.get("GPURT_CACHE_DIR",
-                                            DEFAULT_CACHE_DIR)
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    path = cache_dir()
+    os.makedirs(path, exist_ok=True)
+    if "JAX_COMPILATION_CACHE_DIR" not in os.environ:
+        jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    return path

@@ -2,10 +2,10 @@
 
 The reference has no sanitizers (its kernels are embarrassingly parallel
 with disjoint writes); JAX's functional purity gives the same property for
-free. What remains worth toggling on TPU:
+free. What remains worth toggling:
 
   * NaN debugging — ``jax_debug_nans`` aborts the first op producing a NaN
-    with a traceback (the TPU-native analog of a device-side assert);
+    with a traceback (the analog of a device-side assert);
   * buffer-donation discipline — ``jax_debug_infs`` and disabling donation
     catch aliasing surprises when iterating on the accumulator/train-step
     paths.

@@ -2,9 +2,8 @@
 
 The reference's only observability is print statements + a per-pixel debug
 buffer (SURVEY.md §5). Here: a structured metric logger (JSON lines), the
-nominal-ray accounting used by bench.py, and a timing context that fences
-device work honestly (chained-step methodology — see bench.py docstring for
-why plain block_until_ready is not trusted on dev transports)."""
+nominal-ray accounting used by bench.py, a timing context, and the devices'
+published peaks for roofline shares."""
 from __future__ import annotations
 
 import json
@@ -18,7 +17,7 @@ from ..types import RenderConfig
 
 
 def nominal_rays(config: RenderConfig) -> int:
-    """Rays per frame as executed by the fixed-shape TPU kernels: every
+    """Rays per frame as executed by the fixed-shape kernels: every
     (pixel, sample, bounce) computes one closest-hit and one shadow query
     regardless of liveness. For the MIS integrator: camera rays x (1 camera
     trace + per-MIS-sample primary + secondary NEE traces)."""
@@ -79,130 +78,41 @@ def profiler_trace(log_dir: str):
 
 
 # ---------------------------------------------------------------------------
-# Roofline / "speed-of-light" model (BASELINE's bar is speed-of-light per
-# chip; Mrays/s alone is self-referential — this model says what fraction of
-# the hardware-bound limit a measured time achieves).
+# Roofline: the least time the device could take for a given operation and
+# byte count, from its published peaks.
 # ---------------------------------------------------------------------------
 
-# TPU v5e (public figures): 197 bf16 TFLOPS = 4 MXUs x 128x128 MACs x 2
-# flops at ~1.5 GHz; VPU issues ~4 x (8x128) f32 lanes/cycle; 819 GB/s HBM.
-V5E = {
-    "clock_hz": 1.5e9,
-    "vpu_f32_per_cycle": 4 * 8 * 128,
-    "hbm_bytes_per_s": 819e9,
+# Published peaks keyed by ``jax.devices()[0].device_kind``. H100 SXM: NVIDIA
+# H100 Tensor Core GPU data sheet (dense rates, 700 W): 67 TFLOP/s f32
+# outside the tensor cores, 3.35 TB/s HBM3. Intersection and shading are f32
+# elementwise work, so the f32 rate (not the tensor cores) bounds compute.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"f32_flops_per_s": 67e12,
+                              "hbm_bytes_per_s": 3.35e12},
 }
 
-# VPU op counts per primitive test, counted from the kernel source
-# (ops/pallas_path.py::closest / occluded_q; one count = one elementwise op
-# on a ray tile — mul/add/cmp/select each count 1, div/sqrt/transcendental
-# also 1, i.e. an optimistic lower bound):
-#   closest-hit per triangle: den(5) num(6) guard(4) tt(1) u(13) v(13)
-#     accept-mask(12) min-carry(2)                         = 56
-#   shadow any-hit per triangle: same minus min-carry/tmax = 46
-#   closest per sphere: quadratic(20) roots(6) accept(10)  = 36
-#   per-bounce shading (NEE + cosine bounce + masks)       ~ 230
-#   Halton draw (f32-digit radical inverse), per dim       ~ 55
-_TRI_CLOSEST = 56
-_TRI_SHADOW = 46
-_SPH = 36
-_SHADE = 230
-_HALTON = 55
+
+def peaks(device_kind: str) -> dict:
+    """Published peaks of a device; an unknown device is an error."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(f"no published peaks for device kind {device_kind!r};"
+                       " add its data-sheet figures to metrics.PEAKS") \
+            from None
 
 
-def roofline_path_fwd(config: RenderConfig, num_tris: int = 36,
-                      num_spheres: int = 0, in_kernel_rng: bool = True,
-                      shadow_tris: int = None, chip: dict = V5E) -> dict:
-    """Compute-bound (VPU) and bandwidth-bound time floors for the variant-B
-    trace kernel, and helpers to report achieved-vs-roofline. The kernel is
-    elementwise-dominated (the one-hot MXU fetches are a rounding error next
-    to the 36-primitive intersection loops), so the VPU term governs.
-    ``shadow_tris``: triangles left in the shadow loop after occluder
-    culling (intersect.potential_occluders) — defaults to num_tris."""
-    if shadow_tris is None:
-        shadow_tris = num_tris
-    per_bounce = (num_tris * _TRI_CLOSEST + shadow_tris * _TRI_SHADOW
-                  + num_spheres * 2 * _SPH + _SHADE)
-    if in_kernel_rng:
-        per_bounce += 4 * _HALTON          # NEE + cosine u-pairs
-    per_sample = config.bounces * per_bounce + (2 * _HALTON + 40)  # camera
-    total_ops = config.num_pixels * config.spp * per_sample
-    t_vpu = total_ops / (chip["clock_hz"] * chip["vpu_f32_per_cycle"])
-    # HBM: offsets in + hdr out (record/draw streams excluded — fwd-only).
-    traffic = config.num_pixels * (4 + 3 * 4)
-    t_hbm = traffic / chip["hbm_bytes_per_s"]
-    return {"t_vpu_s": t_vpu, "t_hbm_s": t_hbm,
-            "t_floor_s": max(t_vpu, t_hbm), "vpu_ops": total_ops}
-
-
-def roofline_path_bwd(config: RenderConfig, num_tris: int = 36,
-                      num_spheres: int = 0, recompute_rng: bool = False,
-                      chip: dict = V5E) -> dict:
-    """Floor for the hand-written backward (ops/pallas_shade.py): no
-    intersection loops (records replay the decisions); forward-shade
-    recompute + reverse sweep ~ 3x the shading op count, plus the record/
-    draw-plane reads and chunked one-hot matmul traffic."""
-    per_bounce = 3 * _SHADE + (4 * _HALTON if recompute_rng else 0)
-    per_sample = config.bounces * per_bounce + 120  # camera gen + reverse
-    total_ops = config.num_pixels * config.spp * per_sample
-    t_vpu = total_ops / (chip["clock_hz"] * chip["vpu_f32_per_cycle"])
-    nsb = config.num_pixels * config.spp * config.bounces
-    traffic = nsb * 4                                  # records
-    if not recompute_rng:
-        traffic += nsb * 4 * 4 + config.num_pixels * config.spp * 2 * 4
-    t_hbm = traffic / chip["hbm_bytes_per_s"]
-    return {"t_vpu_s": t_vpu, "t_hbm_s": t_hbm,
-            "t_floor_s": max(t_vpu, t_hbm), "vpu_ops": total_ops}
-
-
-def roofline_mis_fwd(config: RenderConfig, num_tris: int = 34,
-                     num_spheres: int = 0, chip: dict = V5E) -> dict:
-    """Floor for the variant-A MIS megakernel: per (camera ray, sample) the
-    kernel runs 1 light probe + 2 closest-hits + 2 secondary probes over
-    all primitives, plus ~3x the BRDF/pdf math of a path bounce."""
-    probes = 3 * (num_tris * _TRI_SHADOW + num_spheres * _SPH)
-    closest = 2 * (num_tris * _TRI_CLOSEST + num_spheres * _SPH)
-    per_sample = probes + closest + 3 * _SHADE
-    cam_trace = num_tris * _TRI_CLOSEST + num_spheres * _SPH + 100
-    total_ops = (config.num_pixels * config.camera_rays
-                 * (cam_trace + (config.mis_samples // 3) * per_sample))
-    t_vpu = total_ops / (chip["clock_hz"] * chip["vpu_f32_per_cycle"])
-    traffic = config.num_pixels * (4 + 3 * 4)
-    t_hbm = traffic / chip["hbm_bytes_per_s"]
-    return {"t_vpu_s": t_vpu, "t_hbm_s": t_hbm,
-            "t_floor_s": max(t_vpu, t_hbm), "vpu_ops": total_ops}
-
-
-def roofline_mis_bwd(config: RenderConfig, num_spheres: int = 0,
-                     chip: dict = V5E) -> dict:
-    """Floor for the record-replay MIS backward (ops/pallas_mis_bwd.py).
-
-    No ray-scene traversal loops (the records replace them); per
-    (camera ray, MIS sample) the kernel recomputes the three strategy
-    stages' continuous math and reverse-sweeps each with an in-kernel
-    jax.vjp. Counting rule: a vjp'd stage costs ~3x its forward ops
-    (recompute + reverse, matching the path-backward model's 3x_SHADE), and
-    one MIS strategy stage is ~2x a path bounce's shading (_SHADE covers
-    NEE + cosine bounce; a strategy adds the GGX BRDF, three pdf
-    evaluations, and the power heuristic — counted from
-    pallas_mis_bwd._mis_bwd_kernel's strategy closures). The chunk-split
-    one-hot fetch/accumulation matmuls ride the MXU (rounding error at
-    Cornell scale) and the int32 record planes set the HBM term."""
-    stage_fwd = 2 * _SHADE            # shading + BRDF/pdf/heuristic math
-    per_sample = 3 * (3 * stage_fwd)  # 3 strategies, vjp ~ 3x forward
-    cam_stage = 3 * 150               # camera ray + camera-hit replay
-    total_ops = (config.num_pixels * config.camera_rays
-                 * (cam_stage + (config.mis_samples // 3) * per_sample))
-    t_vpu = total_ops / (chip["clock_hz"] * chip["vpu_f32_per_cycle"])
-    # Records in: camera record + per-sample strategy records (int32), hdr
-    # cotangent in, table/scalars negligible.
-    traffic = (config.num_pixels * config.camera_rays
-               * (1 + config.mis_samples) * 4
-               + config.num_pixels * 3 * 4)
-    t_hbm = traffic / chip["hbm_bytes_per_s"]
-    return {"t_vpu_s": t_vpu, "t_hbm_s": t_hbm,
-            "t_floor_s": max(t_vpu, t_hbm), "vpu_ops": total_ops}
+def roofline(flops: float, bytes_moved: float, device_kind: str) -> dict:
+    """Time floors for ``flops`` f32 operations and ``bytes_moved`` bytes
+    of device-memory traffic, and which of the two bounds the work."""
+    pk = peaks(device_kind)
+    t_flops = flops / pk["f32_flops_per_s"]
+    t_bytes = bytes_moved / pk["hbm_bytes_per_s"]
+    return {"t_flops_s": t_flops, "t_bytes_s": t_bytes,
+            "t_floor_s": max(t_flops, t_bytes),
+            "bound": "compute" if t_flops >= t_bytes else "memory"}
 
 
 def roofline_pct(measured_s: float, model: dict) -> float:
-    """Achieved fraction of the modeled hardware floor, in percent."""
+    """Achieved share of the roofline floor, in percent."""
     return 100.0 * model["t_floor_s"] / measured_s

@@ -3,7 +3,7 @@
 // The reference's host runtime is native (Swift): buffer marshalling
 // (computeShader.swift:13-41), accel-structure prep (:45-97), and CPU image
 // post-processing + PNG output (image.swift:15-157). This library is the
-// TPU framework's native equivalent for the host-side stages that are not
+// framework's native equivalent for the host-side stages that are not
 // XLA work: tonemapping large HDR buffers, PNG encoding, scene flattening /
 // intersection-constant precompute, and Halton table generation for
 // host-side sampling. Exposed via a plain C ABI, consumed through ctypes

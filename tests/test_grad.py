@@ -195,3 +195,13 @@ def test_inverse_rendering_fast_loop_converges(sphere_scene):
     np.testing.assert_allclose(np.asarray(res.params.light_emission),
                                np.asarray(true_params.light_emission),
                                rtol=0.15)
+
+
+def test_inverse_render_soft_with_fast_raises(scene):
+    """soft=True runs the jnp soft renderer, which has no kernel: asking
+    for the kernel path as well is an error, not a silent fallback."""
+    params = extract_params(scene)
+    target = jnp.zeros((24, 24, 3), jnp.float32)
+    with pytest.raises(ValueError, match="soft"):
+        inverse_render(scene, target, params, _cfg(), steps=1, soft=True,
+                       fast=True)

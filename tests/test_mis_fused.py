@@ -91,7 +91,7 @@ def test_mis_fused_sphere_grads_match_oracle(sphere_grads, group):
     reverse mode, giving a bodily different — individually valid —
     subgradient for ONE primitive at that pixel (measured round 5: 3 of
     108 vert elements at ~2e-4 of max-norm, the rest at 1e-7; the same
-    phenomenon as BASELINE.md's documented TPU decision flips). Assert
+    phenomenon as accelerator-vs-oracle decision flips). Assert
     the tight bound on all but a bounded handful of elements, and a
     1e-3-of-max-norm cap on those."""
     g_f, g_o = sphere_grads

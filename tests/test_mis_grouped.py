@@ -1,11 +1,10 @@
-"""Grouped traversal for the variant-A MIS kernels (round 5 — the last
-scene-scale ceiling): above pallas_path.STATIC_UNROLL_MAX the MIS trace
-kernel runs the two-level AABB-culled grouped triangle sweep and the
-hand-written backward switches to block-contracted fetch/cotangent
-accumulation. Values and ALL gradient groups must match the jnp oracle on
-a tessellated scene far past the old 256-triangle guard — which this file
-replaces (the reference's drawTriangle runs on any mesh via the driver
-BVH, Sources/gpuRaytracer/shaders.metal:459-509). Interpret mode on CPU."""
+"""Grouped traversal for the variant-A MIS kernels on tessellated meshes:
+the MIS trace kernel runs the AABB-skipped group loop and the
+hand-written backward replays records with gathered fetches and partial
+cotangent sums. Values and ALL gradient groups must match the jnp oracle
+on a tessellated scene (the reference's drawTriangle runs on any mesh via
+the driver BVH, Sources/gpuRaytracer/shaders.metal:459-509). Interpret
+mode on CPU."""
 import dataclasses
 
 import jax
@@ -27,7 +26,7 @@ _CFG = RenderConfig(width=16, height=8, integrator="mis", camera_rays=2,
 def scene():
     s = cornell_box_tessellated(resolution=(16, 8), wall_subdiv=3,
                                 sphere_subdiv=1)
-    assert s.triangles.num_triangles > 64  # grouped tier engaged
+    assert s.triangles.num_triangles > 64  # many triangle groups
     return s
 
 

@@ -18,7 +18,7 @@ def scene():
 
 def _cfg(**kw):
     # Interpret-mode kernel execution is slow (~20 s per spp x bounce unit),
-    # so parity configs stay minimal; the TPU path is timed in bench.py.
+    # so parity configs stay minimal; the GPU path is timed in bench.py.
     base = dict(width=32, height=16, integrator="path", spp=1, bounces=3,
                 pixel_chunk=512)
     base.update(kw)

@@ -139,21 +139,48 @@ def test_debug_checks_catches_nan():
 
 
 def test_roofline_model_sane():
-    from gpuraytracer_tpu.utils.metrics import (
-        roofline_mis_fwd, roofline_path_bwd, roofline_path_fwd, roofline_pct)
-    c = _cfg()
-    fwd = roofline_path_fwd(c)
-    bwd = roofline_path_bwd(c)
-    assert 0 < fwd["t_floor_s"] < 1.0
-    assert bwd["t_floor_s"] < fwd["t_floor_s"]  # no intersection loops
-    # achieved% is monotone in measured time and <=100 at the floor
-    assert roofline_pct(fwd["t_floor_s"], fwd) == _pytest_approx(100.0)
-    assert roofline_pct(2 * fwd["t_floor_s"], fwd) == _pytest_approx(50.0)
-    mis = roofline_mis_fwd(RenderConfig(width=64, height=64,
-                                        integrator="mis", camera_rays=2,
-                                        mis_samples=30))
-    assert mis["t_vpu_s"] > mis["t_hbm_s"]  # elementwise-dominated
+    from gpuraytracer_tpu.utils.metrics import roofline, roofline_pct
+    kind = "NVIDIA H100 80GB HBM3"
+    compute = roofline(67e12, 1.0, kind)      # 1 s of f32 work, ~no bytes
+    assert compute["bound"] == "compute"
+    assert compute["t_floor_s"] == _pytest_approx(1.0)
+    memory = roofline(1.0, 3.35e12, kind)     # 1 s of HBM traffic
+    assert memory["bound"] == "memory"
+    # achieved% is monotone in measured time and 100 at the floor
+    assert roofline_pct(compute["t_floor_s"], compute) == \
+        _pytest_approx(100.0)
+    assert roofline_pct(2 * compute["t_floor_s"], compute) == \
+        _pytest_approx(50.0)
+
+
+def test_peaks_table_has_h100():
+    from gpuraytracer_tpu.utils.metrics import peaks
+    pk = peaks("NVIDIA H100 80GB HBM3")
+    assert pk["f32_flops_per_s"] == 67e12
+    assert pk["hbm_bytes_per_s"] == 3.35e12
+
+
+def test_peaks_table_unknown_device_raises():
+    from gpuraytracer_tpu.utils.metrics import peaks, roofline
+    with pytest.raises(KeyError, match="no published peaks"):
+        peaks("cpu")
+    with pytest.raises(KeyError):
+        roofline(1.0, 1.0, "some other accelerator")
 
 
 def _pytest_approx(x):
     return pytest.approx(x, rel=1e-6)
+
+
+def test_cache_dir_follows_env(monkeypatch, tmp_path):
+    from gpuraytracer_tpu.utils import cache
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert cache.cache_dir() == str(tmp_path)
+
+
+def test_cache_dir_default_in_checkout(monkeypatch):
+    import os
+    from gpuraytracer_tpu.utils import cache
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    assert cache.cache_dir() == cache.DEFAULT_CACHE_DIR
+    assert os.path.basename(cache.DEFAULT_CACHE_DIR) == ".jax_cache"
